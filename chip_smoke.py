@@ -5,18 +5,27 @@
 
 Phases:
   1. the device: name, power limit; TF32 off for the references.
-  2. build the CUDA kernels from ray_tpu_torch/ops/csrc (first use).
-  3. kernels: the causal-attention forward and fused backward, through
-     impl="splash" and impl="flash", held against the plain PyTorch version
-     on the same inputs, at the main path's shape (strided q/k/v views of one
-     QKV tensor), at D=128, at a ragged S, and with float32 inputs; then
-     timed at GPT-2 124M's shape beside the plain version and
+  2. build the CUDA kernels from ray_tpu_torch/ops/csrc (first use), one
+     nvcc per source, all at once; print each kernel's registers and spills
+     (ptxas) and the sm90 forward's shared memory and CTAs per SM.
+  3. kernels: the causal-attention forwards (attention_fwd_sm90.cu for bf16
+     at D=64, causal_attention.cu's attn_fwd_kernel for D=128 and float32)
+     and the fused backward, through impl="splash" and impl="flash", held
+     against the plain PyTorch version on the same inputs, at the main
+     path's shape (strided q/k/v views of one QKV tensor), at D=128, at a
+     ragged S, with q, k, v as head-major views, and with float32 inputs,
+     each checked to have taken the forward that the routing table names;
+     then timed at GPT-2 124M's shape (both forwards) beside the plain
+     version and
      torch.nn.functional.scaled_dot_product_attention (timing only).
   4. the slice: GPT-2 124M training through make_train_step.  (a) one step
      at batch 2 with the kernels and with the plain attention, same weights
      and batch; (b) 2 warm-up + 10 timed steps at batch 18 on one repeated
      synthetic batch, with the launch counters reset just before and read
-     just after.
+     just after; (c) every forward launch of (b) went through the sm90
+     kernel.  (d) the D=128 path: one forward and backward through
+     causal_attention at Llama's head dim, counters reset before and read
+     after, which launches attn_fwd_kernel.
 Then one JSON line on the kernels and, last, {"ok": true, "device": ...}.
 Any failed check makes the script exit 1 without that last line.  It exits 2
 when no CUDA device is present.
@@ -34,10 +43,12 @@ the loss averages over 2048 tokens and the norm over 124M gradients.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -54,7 +65,10 @@ CHECK_SHAPES = [  # B, S, H, D
     (1, 1000, 4, 128),
 ]
 F32_CHECK_SHAPES = [(1, 300, 4, 64), (1, 200, 2, 128)]
+D128_PATH = (1, 1024, 24, 128)  # B, S, H, D of path (d)
 TPU_KERNELS = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
+SOURCES = ("causal_attention", "attention_fwd_sm90")  # under ray_tpu_torch/ops/csrc/
+FWD_COUNTERS = {"sm90": "causal_attention_fwd_sm90", "wmma": "causal_attention_fwd_wmma"}
 
 FAILED = []
 
@@ -78,19 +92,26 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def qkv_views(B, S, H, D, dtype, gen):
+def qkv_views(B, S, H, D, dtype, gen, head_major=False):
     """q, k, v as the model hands them over: [B, S, H, D] views of one
-    [B, S, 3*H*D] projection output (seq stride 3*H*D)."""
+    [B, S, 3*H*D] projection output (seq stride 3*H*D); or, head_major,
+    [B, S, H, D] views of [B, H, S, D] tensors (head stride above seq
+    stride)."""
+    if head_major:
+        qkv = torch.randn(3, B, H, S, D, device="cuda", generator=gen).to(dtype)
+        return [t.transpose(1, 2) for t in qkv]
     qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=gen).to(dtype)
     return [t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1)]
 
 
-def attention_errors(att, B, S, H, D, dtype, impl, seed):
+def attention_errors(att, B, S, H, D, dtype, impl, seed, fwd_routes=(), head_major=False):
     """Max |error| of the kernel path (impl) and of the plain version run in
     `dtype`, both against the plain version in float32, for out, lse, dq, dk,
-    dv."""
+    dv; the forward kernels the kernel path launched (route -> count); and
+    the out error of each forward kernel in `fwd_routes` launched directly
+    on the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = qkv_views(B, S, H, D, dtype, gen)
+    q, k, v = qkv_views(B, S, H, D, dtype, gen, head_major)
     do = torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
     scale = D**-0.5
 
@@ -102,7 +123,9 @@ def attention_errors(att, B, S, H, D, dtype, impl, seed):
 
     ref = run(lambda a, b, c: att.plain_causal_attention(a, b, c, scale), torch.float32)
     plain = run(lambda a, b, c: att.plain_causal_attention(a, b, c, scale), dtype)
+    before = {r: att.LAUNCHES[c] for r, c in FWD_COUNTERS.items()}
     kern = run(lambda a, b, c: att.causal_attention(a, b, c, impl=impl), dtype)
+    taken = {r: att.LAUNCHES[c] - before[r] for r, c in FWD_COUNTERS.items()}
     # lse straight from the forward kernel, on pre-scaled q and the strided k, v
     qs = (q * torch.tensor(scale, dtype=dtype)).contiguous()
     _, lse = att.attention_fwd(qs, k, v)
@@ -114,31 +137,53 @@ def attention_errors(att, B, S, H, D, dtype, impl, seed):
     err_k = {n: (a - r).abs().max().item() for n, a, r in zip(names, kern, ref)}
     err_p = {n: (a - r).abs().max().item() for n, a, r in zip(names, plain, ref)}
     err_k["lse"] = (lse - lse_ref).abs().max().item()
-    return err_k, err_p
+    fwd_err = {r: (att._launch_fwd(r, qs, k, v)[0].float() - ref[0]).abs().max().item() for r in fwd_routes}
+    return err_k, err_p, taken, fwd_err
+
+
+def check_route(att, taken, dtype, D, what):
+    want = att._FWD_ROUTES[(dtype, D)]
+    check(f"route {what}", taken == {r: int(r == want) for r in FWD_COUNTERS},
+          f"forward launches {taken}, table names {want}")
 
 
 def kernel_phase(att):
-    max_err = {"causal_attention_fwd": 0.0, "causal_attention_bwd": 0.0}
     for i, (B, S, H, D) in enumerate(CHECK_SHAPES):
         for impl in ("splash", "flash"):
-            ek, ep = attention_errors(att, B, S, H, D, torch.bfloat16, impl, seed=10 + i)
+            ek, ep, taken, _ = attention_errors(att, B, S, H, D, torch.bfloat16, impl, seed=10 + i)
+            check_route(att, taken, torch.bfloat16, D, f"bf16 B={B} S={S} H={H} D={D} impl={impl}")
             for n in ("out", "dq", "dk", "dv"):
                 tol = 2 * ep[n] + 1e-3
                 check(f"bf16 {n} B={B} S={S} H={H} D={D} impl={impl}", ek[n] <= tol,
                       f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
             check(f"bf16 lse B={B} S={S} H={H} D={D} impl={impl}", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
+    # q, k, v as head-major views: the kernels take any batch/seq/head strides
+    B, S, H, D = CHECK_SHAPES[2]
+    ek, ep, taken, _ = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=4, head_major=True)
+    check_route(att, taken, torch.bfloat16, D, f"bf16 head-major B={B} S={S} H={H} D={D}")
+    for n in ("out", "dq", "dk", "dv"):
+        tol = 2 * ep[n] + 1e-3
+        check(f"bf16 head-major {n} B={B} S={S} H={H} D={D}", ek[n] <= tol,
+              f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
+    check(f"bf16 head-major lse B={B} S={S} H={H} D={D}", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
     # the main path's exact shape; these are the errors reported per kernel
     B, S, H, D = SLICE_ATTN
-    ek, ep = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=1)
+    ek, ep, taken, fwd_err = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=1,
+                                              fwd_routes=tuple(FWD_COUNTERS))
+    check_route(att, taken, torch.bfloat16, D, f"bf16 B={B} S={S} H={H} D={D} impl=auto")
+    for r, e in fwd_err.items():  # both forwards launched directly on the same inputs
+        tol = 2 * ep["out"] + 1e-3
+        check(f"bf16 out B={B} S={S} H={H} D={D} forward {r}", e <= tol, f"kernel {e:.3e} tol {tol:.3e}")
     for n in ("out", "dq", "dk", "dv"):
         tol = 2 * ep[n] + 1e-3
         check(f"bf16 {n} B={B} S={S} H={H} D={D} impl=auto", ek[n] <= tol,
               f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
     check(f"bf16 lse B={B} S={S} H={H} D={D} impl=auto", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
-    max_err["causal_attention_fwd"] = ek["out"]
+    max_err = {FWD_COUNTERS[r]: e for r, e in fwd_err.items()}
     max_err["causal_attention_bwd"] = max(ek["dq"], ek["dk"], ek["dv"])
     for B, S, H, D in F32_CHECK_SHAPES:
-        ek, _ = attention_errors(att, B, S, H, D, torch.float32, "splash", seed=5)
+        ek, _, taken, _ = attention_errors(att, B, S, H, D, torch.float32, "splash", seed=5)
+        check_route(att, taken, torch.float32, D, f"f32 B={B} S={S} H={H} D={D}")
         for n, e in ek.items():
             check(f"f32 {n} B={B} S={S} H={H} D={D}", e <= 1e-4, f"{e:.3e} tol 1e-4")
     return max_err
@@ -163,6 +208,11 @@ def attention_bounds(B, S, H, D, elem=2):
     return out
 
 
+def attention_flops(B, S, H, D):
+    """FLOP of the causal forward: Q K^T and P V over the S(S+1)/2 pairs."""
+    return 4 * D * B * H * S * (S + 1) / 2
+
+
 def timing_phase(att):
     B, S, H, D = SLICE_ATTN
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -170,30 +220,34 @@ def timing_phase(att):
     do = torch.randn(B, S, H, D, device="cuda", generator=gen).bfloat16()
     qs = (q * torch.tensor(D**-0.5, dtype=torch.bfloat16)).contiguous()
     o, lse = att.attention_fwd(qs, k, v)
-    times = {
-        "causal_attention_fwd": cuda_ms(lambda: att.attention_fwd(qs, k, v)),
-        "causal_attention_bwd": cuda_ms(lambda: att.attention_bwd(qs, k, v, o, lse, do)),
-    }
+    times = {c: cuda_ms(lambda r=r: att._launch_fwd(r, qs, k, v)) for r, c in FWD_COUNTERS.items()}
+    times["causal_attention_bwd"] = cuda_ms(lambda: att.attention_bwd(qs, k, v, o, lse, do))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     plain_out = att.plain_causal_attention(*leaves, D**-0.5)
-    plain = {
-        "causal_attention_fwd": cuda_ms(lambda: att.plain_causal_attention(q, k, v, D**-0.5)),
-        "causal_attention_bwd": cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True)),
-    }
+    plain_fwd = cuda_ms(lambda: att.plain_causal_attention(q, k, v, D**-0.5))
+    plain = {c: plain_fwd for c in FWD_COUNTERS.values()}
+    plain["causal_attention_bwd"] = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True))
     del plain_out
     # library yardstick: one PyTorch call computing the same function, [B,H,S,D]
     lq, lk, lv = [t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
     ldo = do.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(lq, lk, lv, is_causal=True)
-    library = {
-        "causal_attention_fwd": cuda_ms(lambda: sdpa(lq, lk, lv, is_causal=True)),
-        "causal_attention_bwd": cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo, retain_graph=True)),
-    }
-    bounds = attention_bounds(B, S, H, D)
+    lib_fwd = cuda_ms(lambda: sdpa(lq, lk, lv, is_causal=True))
+    library = {c: lib_fwd for c in FWD_COUNTERS.values()}
+    library["causal_attention_bwd"] = cuda_ms(
+        lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo, retain_graph=True))
+    bound = attention_bounds(B, S, H, D)
+    bounds = {c: bound["causal_attention_fwd"] for c in FWD_COUNTERS.values()}
+    bounds["causal_attention_bwd"] = bound["causal_attention_bwd"]
     for name in times:
         print(f"time {name} B={B} S={S} H={H} D={D}: kernel {times[name]:.4f} ms, plain {plain[name]:.4f} ms, "
-              f"sdpa {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
+              f"sdpa {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
+              f"{bounds[name][0] / times[name]:.1%} of the bound, {times[name] / library[name]:.2f}x sdpa", flush=True)
+    for c in FWD_COUNTERS.values():
+        print(f"rate {c}: {attention_flops(B, S, H, D) / times[c] / 1e9:.1f} TFLOP/s "
+              f"({attention_flops(B, S, H, D) / times[c] / 1e9 / (BF16_PEAK_FLOPS / 1e12):.1%} of the bf16 peak)",
+              flush=True)
     return times, plain, library, bounds
 
 
@@ -251,9 +305,59 @@ def slice_phase(att, card):
     check("slice (b) loss falls", losses[-1] < losses[0], f"first {losses[0]:.4f} last {losses[-1]:.4f}")
     check("slice (c) forward launches", launches["causal_attention_fwd"] == per_fwd * total,
           f"{launches['causal_attention_fwd']} for {total} steps")
+    check("slice (c) forward launches on the sm90 kernel",
+          launches["causal_attention_fwd_sm90"] == per_fwd * total and launches["causal_attention_fwd_wmma"] == 0,
+          f"sm90 {launches['causal_attention_fwd_sm90']}, wmma {launches['causal_attention_fwd_wmma']}")
     check("slice (c) backward launches", launches["causal_attention_bwd"] == cfg.n_layer * total,
           f"{launches['causal_attention_bwd']} for {total} steps")
     return launches
+
+
+def d128_phase(att):
+    """Path (d): causal attention at Llama's head dim through the entry point
+    a model calls, forward and backward once; the launches it makes."""
+    B, S, H, D = D128_PATH
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (t.detach().requires_grad_() for t in qkv_views(B, S, H, D, torch.bfloat16, gen))
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    out = att.causal_attention(q, k, v)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    check("path (d) D=128 launches", launches["causal_attention_fwd_wmma"] == 1
+          and launches["causal_attention_fwd_sm90"] == 0 and launches["causal_attention_bwd"] == 1,
+          f"{launches}")
+    return launches
+
+
+def build_phase(att):
+    """Build every kernel source at once; print registers and spills per
+    kernel (ptxas), and the sm90 forward's shared memory and CTAs per SM."""
+    from ray_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all(SOURCES)
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in SOURCES:
+        report = _build.ptxas_report(name)
+        for entry, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)", report, re.S):
+            kernel = re.search(r"(attn_\w+?_kernel)", entry)
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+            tmpl = re.search(r"kernelI(\w+?)EEv", entry)
+            print(f"ptxas {name}: {kernel.group(1) if kernel else entry}{'<' + tmpl.group(1) + '>' if tmpl else ''}: "
+                  f"{regs.group(1) if regs else '?'} registers, spill stores {spill.group(1) if spill else '?'} B, "
+                  f"spill loads {spill.group(2) if spill else '?'} B", flush=True)
+            if "sm90" in entry:
+                check("ptxas: sm90 forward spills nothing", bool(spill) and spill.groups() == ("0", "0"),
+                      spill.group(0) if spill else "no spill line in the report")
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    lib = att._kernels("attention_fwd_sm90")
+    err = lib.rtt_attn_fwd_sm90_occupancy(ctypes.byref(smem), ctypes.byref(ctas))
+    check("sm90 forward occupancy query", err == 0, f"error {err}")
+    print(f"occupancy attn_fwd_sm90_kernel: {smem.value} bytes of dynamic shared memory, "
+          f"{ctas.value} CTAs (of 256 threads) per SM", flush=True)
 
 
 def main() -> int:
@@ -275,28 +379,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
-    t0 = time.perf_counter()
-    att._kernels()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    build_phase(att)
 
     # 3. kernels
     max_err = kernel_phase(att)
     times, plain, library, bounds = timing_phase(att)
 
-    # 4. the slice
+    # 4. the slice, then path (d)
     launches = slice_phase(att, smi)
+    launches["causal_attention_fwd_wmma"] = d128_phase(att)["causal_attention_fwd_wmma"]
 
-    replaces = {
-        "causal_attention_fwd": f"{TPU_KERNELS}:1137",  # _splash_attention_forward
-        "causal_attention_bwd": f"{TPU_KERNELS}:2196",  # _splash_attention_bwd_dkv, fused
+    info = {  # name -> (source, replaces, status)
+        "causal_attention_fwd_sm90": (
+            "ray_tpu_torch/ops/csrc/attention_fwd_sm90.cu", f"{TPU_KERNELS}:1137",  # _splash_attention_forward
+            "ported (wgmma, TMA); bf16 at D=64, the main path's forward; "
+            "also serves impl='flash' (flash_attention.py:758)"),
+        "causal_attention_fwd_wmma": (
+            "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:1137",
+            "ported (WMMA); bf16 at D=128 and float32, launches from path (d); "
+            "timed and checked at the main path's shape beside the sm90 kernel"),
+        "causal_attention_bwd": (
+            "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:2196",  # _splash_attention_bwd_dkv, fused
+            "ported; also serves impl='flash' (flash_attention.py:1121/1456)"),
     }
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/causal_attention.cu",
-            "replaces": replaces[name],
-            "status": "ported; also serves impl='flash' (flash_attention.py:758/1121/1456)",
+            "source": source,
+            "replaces": replaces,
+            "status": status,
             "launches": launches[name],
             "max_abs_err": max_err[name],
             "ms": times[name],
@@ -305,7 +417,7 @@ def main() -> int:
             "bound_by": bounds[name][1],
             "library_ms": library[name],
         }
-        for name in ("causal_attention_fwd", "causal_attention_bwd")
+        for name, (source, replaces, status) in info.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILED:

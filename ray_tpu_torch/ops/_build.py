@@ -18,7 +18,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -72,6 +74,18 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_all(names: Iterable[str]) -> List[Path]:
+    """`build` each of `names`, one nvcc for each, all started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
+
+
+def ptxas_report(name: str) -> str:
+    """The compiler's resource report kept beside the built `csrc/<name>.cu`."""
+    return build(name).with_suffix(".ptxas.txt").read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,9 +4,12 @@ the CPU.
 Port of `ray_tpu/ops/attention.py`.  There, `impl="auto"` reaches the TPU
 splash-attention kernels (forward, and a fused backward giving dq, dk, dv)
 and `impl="flash"` the TPU flash-attention kernels.  Here every one of those
-names launches the kernels of `csrc/causal_attention.cu` on a CUDA tensor;
-only `impl="xla"` names the plain version, the port of
-`_xla_causal_attention`.  On a CPU tensor every impl runs the plain version.
+names launches the CUDA kernels on a CUDA tensor: the forward of
+`csrc/attention_fwd_sm90.cu` (wgmma, TMA) for bfloat16 at head dim 64, the
+forward of `csrc/causal_attention.cu` for the other dtypes and head dims
+(`_FWD_ROUTES`), and the fused backward of `csrc/causal_attention.cu`.  Only
+`impl="xla"` names the plain version, the port of `_xla_causal_attention`.
+On a CPU tensor every impl runs the plain version.
 
 Layout: [batch, seq, heads, head_dim] in and out, as in the JAX package.
 The kernels read q, k and v through their strides, so the views that come
@@ -27,9 +30,30 @@ IMPLS = ("auto", "splash", "flash", "xla")
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
+# The forward kernel for each (dtype, head_dim), chosen by type and shape
+# alone: "sm90" is attention_fwd_sm90.cu, "wmma" causal_attention.cu's
+# attn_fwd_kernel.
+_FWD_ROUTES = {
+    (torch.bfloat16, 64): "sm90",
+    (torch.bfloat16, 128): "wmma",
+    (torch.float32, 64): "wmma",
+    (torch.float32, 128): "wmma",
+}
+# route -> (library under csrc/, entry point, launch counter)
+_FWD_KERNELS = {
+    "sm90": ("attention_fwd_sm90", "rtt_attn_fwd_sm90", "causal_attention_fwd_sm90"),
+    "wmma": ("causal_attention", "rtt_attn_fwd", "causal_attention_fwd_wmma"),
+}
+
 # Launches of each kernel since the last reset_launch_counts(): a run reads
-# them to show that it went through the kernels.
-LAUNCHES = {"causal_attention_fwd": 0, "causal_attention_bwd": 0}
+# them to show that it went through the kernels.  "causal_attention_fwd"
+# counts every forward launch, the two after it each forward kernel's.
+LAUNCHES = {
+    "causal_attention_fwd": 0,
+    "causal_attention_fwd_sm90": 0,
+    "causal_attention_fwd_wmma": 0,
+    "causal_attention_bwd": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -56,16 +80,27 @@ def plain_causal_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+_P, _I, _STRIDES = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+_FWD_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _STRIDES, _P]
+# library -> {entry point: argtypes}; every pointer and the stream are c_void_p
+_ENTRY_POINTS = {
+    "causal_attention": {
+        "rtt_attn_fwd": _FWD_ARGTYPES,
+        "rtt_attn_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _STRIDES, _P],
+    },
+    "attention_fwd_sm90": {"rtt_attn_fwd_sm90": _FWD_ARGTYPES, "rtt_attn_fwd_sm90_occupancy": [_P, _P]},
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels() -> ctypes.CDLL:
-    lib = _build.load("causal_attention")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.rtt_attn_fwd.argtypes = [I, I, P, P, P, P, P, I, I, I, strides, P]
-    lib.rtt_attn_fwd.restype = I
-    lib.rtt_attn_bwd.argtypes = [I, I, P, P, P, P, P, P, P, P, P, I, I, I, strides, P]
-    lib.rtt_attn_bwd.restype = I
-    lib.rtt_error_string.argtypes = [I]
+def _kernels(name: str = "causal_attention") -> ctypes.CDLL:
+    """The built library `csrc/<name>.cu`, its entry points declared."""
+    lib = _build.load(name)
+    for entry, argtypes in _ENTRY_POINTS[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    lib.rtt_error_string.argtypes = [_I]
     lib.rtt_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -97,20 +132,29 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on pre-scaled q: (o [B,S,H,D] in q's dtype,
-    lse [B,H,S] f32).  q, k, v must already satisfy `_vector_ready`."""
-    lib = _kernels()
+def _launch_fwd(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel of `route` (a key of `_FWD_KERNELS`)."""
+    name, entry, counter = _FWD_KERNELS[route]
+    lib = _kernels(name)
     B, S, H, D = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = lib.rtt_attn_fwd(
+    err = getattr(lib, entry)(
         _KERNEL_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, H, S, _qkv_strides(q, k, v), _stream(q.device),
     )
-    _raise_on_error(lib, err, "causal_attention_fwd")
+    _raise_on_error(lib, err, counter)
     LAUNCHES["causal_attention_fwd"] += 1
+    LAUNCHES[counter] += 1
     return o, lse
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel that `_FWD_ROUTES` names for q's dtype and
+    head dim, on pre-scaled q: (o [B,S,H,D] in q's dtype, lse [B,H,S] f32,
+    the natural-log logsumexp of each row of scores).  q, k, v must already
+    satisfy `_vector_ready`."""
+    return _launch_fwd(_FWD_ROUTES[(q.dtype, q.shape[-1])], q, k, v)
 
 
 def attention_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -7,7 +7,10 @@
 //   attn_bwd_kernel  <- same file, _splash_attention_bwd_dkv with
 //                       use_fused_bwd_kernel=True (dq, dk and dv in one kernel)
 // They also serve causal_attention(impl="flash"), whose TPU kernels
-// (flash_attention.py) compute the same function.
+// (flash_attention.py) compute the same function.  For bfloat16 at head
+// dim 64 the forward is attention_fwd_sm90.cu (wgmma, TMA), chosen by
+// ops/attention.py's routing table; attn_fwd_kernel takes head dim 128 and
+// float32 inputs.
 //
 // Convention (splash's): q arrives pre-scaled by sm_scale, so the kernels
 // compute softmax(q k^T) v with no scale inside, and the residual lse is the
@@ -22,9 +25,9 @@
 // [S, S] scores never reach device memory (online softmax in the forward,
 // recompute from lse in the backward), tiles above the diagonal are skipped,
 // and every product runs on the tensor cores (WMMA bf16 16x16x16, f32
-// accumulate).  This first version stages every tile product through shared
-// memory and runs one block per tile; wgmma, TMA and warp specialisation are
-// later work.  float32 inputs take an FMA path at half the tile size: it is
+// accumulate).  These kernels stage every tile product through shared
+// memory and run one block per tile; attention_fwd_sm90.cu is the forward
+// redesigned for Hopper.  float32 inputs take an FMA path at half the tile size: it is
 // there so the algorithm can be held against the float32 reference exactly.
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the

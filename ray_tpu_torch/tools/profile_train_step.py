@@ -20,7 +20,8 @@ from collections import defaultdict
 import torch
 
 GROUPS = (  # first match wins; names as CUDA reports the kernels
-    ("attention fwd (port kernel)", ("attn_fwd_kernel",)),
+    ("attention fwd (port kernel, sm90)", ("attn_fwd_sm90_kernel",)),
+    ("attention fwd (port kernel, wmma)", ("attn_fwd_kernel",)),
     ("attention bwd (port kernel)", ("attn_bwd_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass")),
     ("loss: softmax / cross entropy", ("softmax", "nll_loss", "cross_entropy", "logsumexp")),

@@ -60,3 +60,25 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_build_all_runs_one_nvcc_per_source_and_keeps_reports(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    compiled = []
+
+    def fake_nvcc(cmd, **kw):
+        compiled.append(cmd[-1])
+        open(cmd[cmd.index("-o") + 1], "wb").write(b"lib")
+        return types.SimpleNamespace(returncode=0, stdout=f"ptxas info : Used 9 registers {cmd[-1]}", stderr="")
+
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", fake_nvcc)
+    libs = _build.build_all(["a", "b"])
+    assert [p.name.split("-")[0] for p in libs] == ["liba", "libb"]
+    assert sorted(compiled) == [str(csrc / "a.cu"), str(csrc / "b.cu")]
+    assert _build.ptxas_report("b").endswith("b.cu") and len(compiled) == 2  # read, not rebuilt
