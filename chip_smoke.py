@@ -7,25 +7,29 @@ Phases:
   1. the device: name, power limit; TF32 off for the references.
   2. build the CUDA kernels from ray_tpu_torch/ops/csrc (first use), one
      nvcc per source, all at once; print each kernel's registers and spills
-     (ptxas) and the sm90 forward's shared memory and CTAs per SM.
+     (ptxas), fail if an sm90 kernel spills, and print the sm90 forward's
+     and backward's shared memory and CTAs per SM.
   3. kernels: the causal-attention forwards (attention_fwd_sm90.cu for bf16
      at D=64, causal_attention.cu's attn_fwd_kernel for D=128 and float32)
-     and the fused backward, through impl="splash" and impl="flash", held
-     against the plain PyTorch version on the same inputs, at the main
-     path's shape (strided q/k/v views of one QKV tensor), at D=128, at a
-     ragged S, with q, k, v as head-major views, and with float32 inputs,
-     each checked to have taken the forward that the routing table names;
-     then timed at GPT-2 124M's shape (both forwards) beside the plain
-     version and
+     and fused backwards (attention_bwd_sm90.cu for bf16 at D=64,
+     causal_attention.cu's attn_bwd_kernel for D=128 and float32), through
+     impl="splash" and impl="flash", held against the plain PyTorch version
+     on the same inputs, at the main path's shape (strided q/k/v views of
+     one QKV tensor), at D=128, at a ragged S, with q, k, v as head-major
+     views, and with float32 inputs, each checked to have taken the forward
+     and the backward that the routing tables name; at the main path's
+     shape every forward and backward kernel is also launched directly on
+     the same inputs and checked; then all are timed at GPT-2 124M's shape
+     beside the plain version and
      torch.nn.functional.scaled_dot_product_attention (timing only).
   4. the slice: GPT-2 124M training through make_train_step.  (a) one step
      at batch 2 with the kernels and with the plain attention, same weights
      and batch; (b) 2 warm-up + 10 timed steps at batch 18 on one repeated
      synthetic batch, with the launch counters reset just before and read
-     just after; (c) every forward launch of (b) went through the sm90
-     kernel.  (d) the D=128 path: one forward and backward through
+     just after; (c) every forward and backward launch of (b) went through
+     the sm90 kernels.  (d) the D=128 path: one forward and backward through
      causal_attention at Llama's head dim, counters reset before and read
-     after, which launches attn_fwd_kernel.
+     after, which launches attn_fwd_kernel and attn_bwd_kernel.
 Then one JSON line on the kernels and, last, {"ok": true, "device": ...}.
 Any failed check makes the script exit 1 without that last line.  It exits 2
 when no CUDA device is present.
@@ -67,8 +71,10 @@ CHECK_SHAPES = [  # B, S, H, D
 F32_CHECK_SHAPES = [(1, 300, 4, 64), (1, 200, 2, 128)]
 D128_PATH = (1, 1024, 24, 128)  # B, S, H, D of path (d)
 TPU_KERNELS = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
-SOURCES = ("causal_attention", "attention_fwd_sm90")  # under ray_tpu_torch/ops/csrc/
+SOURCES = ("causal_attention", "attention_fwd_sm90", "attention_bwd_sm90")  # under ray_tpu_torch/ops/csrc/
 FWD_COUNTERS = {"sm90": "causal_attention_fwd_sm90", "wmma": "causal_attention_fwd_wmma"}
+BWD_COUNTERS = {"sm90": "causal_attention_bwd_sm90", "wmma": "causal_attention_bwd_wmma"}
+COUNTERS = (*FWD_COUNTERS.values(), *BWD_COUNTERS.values())
 
 FAILED = []
 
@@ -104,12 +110,12 @@ def qkv_views(B, S, H, D, dtype, gen, head_major=False):
     return [t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1)]
 
 
-def attention_errors(att, B, S, H, D, dtype, impl, seed, fwd_routes=(), head_major=False):
+def attention_errors(att, B, S, H, D, dtype, impl, seed, direct=False, head_major=False):
     """Max |error| of the kernel path (impl) and of the plain version run in
     `dtype`, both against the plain version in float32, for out, lse, dq, dk,
-    dv; the forward kernels the kernel path launched (route -> count); and
-    the out error of each forward kernel in `fwd_routes` launched directly
-    on the same inputs."""
+    dv; the kernels the kernel path launched (counter -> count); and, with
+    `direct`, the errors of each forward and backward kernel launched
+    directly on the same inputs (counter -> {name: error})."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = qkv_views(B, S, H, D, dtype, gen, head_major)
     do = torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
@@ -123,12 +129,12 @@ def attention_errors(att, B, S, H, D, dtype, impl, seed, fwd_routes=(), head_maj
 
     ref = run(lambda a, b, c: att.plain_causal_attention(a, b, c, scale), torch.float32)
     plain = run(lambda a, b, c: att.plain_causal_attention(a, b, c, scale), dtype)
-    before = {r: att.LAUNCHES[c] for r, c in FWD_COUNTERS.items()}
+    before = {c: att.LAUNCHES[c] for c in COUNTERS}
     kern = run(lambda a, b, c: att.causal_attention(a, b, c, impl=impl), dtype)
-    taken = {r: att.LAUNCHES[c] - before[r] for r, c in FWD_COUNTERS.items()}
+    taken = {c: att.LAUNCHES[c] - before[c] for c in COUNTERS}
     # lse straight from the forward kernel, on pre-scaled q and the strided k, v
     qs = (q * torch.tensor(scale, dtype=dtype)).contiguous()
-    _, lse = att.attention_fwd(qs, k, v)
+    o, lse = att.attention_fwd(qs, k, v)
     scores = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     causal = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
     lse_ref = torch.logsumexp(scores.masked_fill(~causal, -math.inf), dim=-1)
@@ -137,14 +143,22 @@ def attention_errors(att, B, S, H, D, dtype, impl, seed, fwd_routes=(), head_maj
     err_k = {n: (a - r).abs().max().item() for n, a, r in zip(names, kern, ref)}
     err_p = {n: (a - r).abs().max().item() for n, a, r in zip(names, plain, ref)}
     err_k["lse"] = (lse - lse_ref).abs().max().item()
-    fwd_err = {r: (att._launch_fwd(r, qs, k, v)[0].float() - ref[0]).abs().max().item() for r in fwd_routes}
-    return err_k, err_p, taken, fwd_err
+    direct_err = {}
+    if direct:
+        for r, c in FWD_COUNTERS.items():
+            direct_err[c] = {"out": (att._launch_fwd(r, qs, k, v)[0].float() - ref[0]).abs().max().item()}
+        for r, c in BWD_COUNTERS.items():  # dq is the gradient of pre-scaled q: times scale (exact, 2**-3)
+            dq, dk, dv = att._launch_bwd(r, qs, k, v, o, lse, do)
+            direct_err[c] = {n: (g.float() * f - want).abs().max().item()
+                             for n, g, f, want in zip(("dq", "dk", "dv"), (dq, dk, dv), (scale, 1, 1), ref[1:])}
+    torch.cuda.synchronize()
+    return err_k, err_p, taken, direct_err
 
 
 def check_route(att, taken, dtype, D, what):
-    want = att._FWD_ROUTES[(dtype, D)]
-    check(f"route {what}", taken == {r: int(r == want) for r in FWD_COUNTERS},
-          f"forward launches {taken}, table names {want}")
+    want = {FWD_COUNTERS[att._FWD_ROUTES[(dtype, D)]], BWD_COUNTERS[att._BWD_ROUTES[(dtype, D)]]}
+    check(f"route {what}", taken == {c: int(c in want) for c in COUNTERS},
+          f"launches {taken}, tables name {sorted(want)}")
 
 
 def kernel_phase(att):
@@ -168,19 +182,18 @@ def kernel_phase(att):
     check(f"bf16 head-major lse B={B} S={S} H={H} D={D}", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
     # the main path's exact shape; these are the errors reported per kernel
     B, S, H, D = SLICE_ATTN
-    ek, ep, taken, fwd_err = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=1,
-                                              fwd_routes=tuple(FWD_COUNTERS))
+    ek, ep, taken, direct_err = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=1, direct=True)
     check_route(att, taken, torch.bfloat16, D, f"bf16 B={B} S={S} H={H} D={D} impl=auto")
-    for r, e in fwd_err.items():  # both forwards launched directly on the same inputs
-        tol = 2 * ep["out"] + 1e-3
-        check(f"bf16 out B={B} S={S} H={H} D={D} forward {r}", e <= tol, f"kernel {e:.3e} tol {tol:.3e}")
+    for c, errs in direct_err.items():  # every kernel launched directly on the same inputs
+        for n, e in errs.items():
+            tol = 2 * ep[n] + 1e-3
+            check(f"bf16 {n} B={B} S={S} H={H} D={D} {c}", e <= tol, f"kernel {e:.3e} tol {tol:.3e}")
     for n in ("out", "dq", "dk", "dv"):
         tol = 2 * ep[n] + 1e-3
         check(f"bf16 {n} B={B} S={S} H={H} D={D} impl=auto", ek[n] <= tol,
               f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
     check(f"bf16 lse B={B} S={S} H={H} D={D} impl=auto", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
-    max_err = {FWD_COUNTERS[r]: e for r, e in fwd_err.items()}
-    max_err["causal_attention_bwd"] = max(ek["dq"], ek["dk"], ek["dv"])
+    max_err = {c: max(errs.values()) for c, errs in direct_err.items()}
     for B, S, H, D in F32_CHECK_SHAPES:
         ek, _, taken, _ = attention_errors(att, B, S, H, D, torch.float32, "splash", seed=5)
         check_route(att, taken, torch.float32, D, f"f32 B={B} S={S} H={H} D={D}")
@@ -208,9 +221,10 @@ def attention_bounds(B, S, H, D, elem=2):
     return out
 
 
-def attention_flops(B, S, H, D):
-    """FLOP of the causal forward: Q K^T and P V over the S(S+1)/2 pairs."""
-    return 4 * D * B * H * S * (S + 1) / 2
+def attention_flops(B, S, H, D, products=2):
+    """FLOP of `products` causal products of depth D over the S(S+1)/2
+    pairs: 2 for the forward (Q K^T, P V), 5 for the backward."""
+    return 2 * products * D * B * H * S * (S + 1) / 2
 
 
 def timing_phase(att):
@@ -221,12 +235,13 @@ def timing_phase(att):
     qs = (q * torch.tensor(D**-0.5, dtype=torch.bfloat16)).contiguous()
     o, lse = att.attention_fwd(qs, k, v)
     times = {c: cuda_ms(lambda r=r: att._launch_fwd(r, qs, k, v)) for r, c in FWD_COUNTERS.items()}
-    times["causal_attention_bwd"] = cuda_ms(lambda: att.attention_bwd(qs, k, v, o, lse, do))
+    times.update({c: cuda_ms(lambda r=r: att._launch_bwd(r, qs, k, v, o, lse, do)) for r, c in BWD_COUNTERS.items()})
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     plain_out = att.plain_causal_attention(*leaves, D**-0.5)
     plain_fwd = cuda_ms(lambda: att.plain_causal_attention(q, k, v, D**-0.5))
     plain = {c: plain_fwd for c in FWD_COUNTERS.values()}
-    plain["causal_attention_bwd"] = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True))
+    plain_bwd = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True))
+    plain.update(dict.fromkeys(BWD_COUNTERS.values(), plain_bwd))
     del plain_out
     # library yardstick: one PyTorch call computing the same function, [B,H,S,D]
     lq, lk, lv = [t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
@@ -235,19 +250,19 @@ def timing_phase(att):
     lib_out = sdpa(lq, lk, lv, is_causal=True)
     lib_fwd = cuda_ms(lambda: sdpa(lq, lk, lv, is_causal=True))
     library = {c: lib_fwd for c in FWD_COUNTERS.values()}
-    library["causal_attention_bwd"] = cuda_ms(
-        lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo, retain_graph=True))
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo, retain_graph=True))
+    library.update(dict.fromkeys(BWD_COUNTERS.values(), lib_bwd))
     bound = attention_bounds(B, S, H, D)
     bounds = {c: bound["causal_attention_fwd"] for c in FWD_COUNTERS.values()}
-    bounds["causal_attention_bwd"] = bound["causal_attention_bwd"]
+    bounds.update(dict.fromkeys(BWD_COUNTERS.values(), bound["causal_attention_bwd"]))
     for name in times:
         print(f"time {name} B={B} S={S} H={H} D={D}: kernel {times[name]:.4f} ms, plain {plain[name]:.4f} ms, "
               f"sdpa {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
               f"{bounds[name][0] / times[name]:.1%} of the bound, {times[name] / library[name]:.2f}x sdpa", flush=True)
-    for c in FWD_COUNTERS.values():
-        print(f"rate {c}: {attention_flops(B, S, H, D) / times[c] / 1e9:.1f} TFLOP/s "
-              f"({attention_flops(B, S, H, D) / times[c] / 1e9 / (BF16_PEAK_FLOPS / 1e12):.1%} of the bf16 peak)",
-              flush=True)
+    for c in COUNTERS:
+        flops = attention_flops(B, S, H, D, products=2 if c in FWD_COUNTERS.values() else 5)
+        print(f"rate {c}: {flops / times[c] / 1e9:.1f} TFLOP/s "
+              f"({flops / times[c] / 1e9 / (BF16_PEAK_FLOPS / 1e12):.1%} of the bf16 peak)", flush=True)
     return times, plain, library, bounds
 
 
@@ -310,6 +325,9 @@ def slice_phase(att, card):
           f"sm90 {launches['causal_attention_fwd_sm90']}, wmma {launches['causal_attention_fwd_wmma']}")
     check("slice (c) backward launches", launches["causal_attention_bwd"] == cfg.n_layer * total,
           f"{launches['causal_attention_bwd']} for {total} steps")
+    check("slice (c) backward launches on the sm90 kernel",
+          launches["causal_attention_bwd_sm90"] == cfg.n_layer * total and launches["causal_attention_bwd_wmma"] == 0,
+          f"sm90 {launches['causal_attention_bwd_sm90']}, wmma {launches['causal_attention_bwd_wmma']}")
     return launches
 
 
@@ -326,14 +344,16 @@ def d128_phase(att):
     torch.cuda.synchronize()
     launches = dict(att.LAUNCHES)
     check("path (d) D=128 launches", launches["causal_attention_fwd_wmma"] == 1
-          and launches["causal_attention_fwd_sm90"] == 0 and launches["causal_attention_bwd"] == 1,
+          and launches["causal_attention_fwd_sm90"] == 0 and launches["causal_attention_bwd_wmma"] == 1
+          and launches["causal_attention_bwd_sm90"] == 0 and launches["causal_attention_bwd"] == 1,
           f"{launches}")
     return launches
 
 
 def build_phase(att):
     """Build every kernel source at once; print registers and spills per
-    kernel (ptxas), and the sm90 forward's shared memory and CTAs per SM."""
+    kernel (ptxas), failing if an sm90 kernel spills, and the sm90 forward's
+    and backward's shared memory and CTAs per SM."""
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -350,14 +370,16 @@ def build_phase(att):
                   f"{regs.group(1) if regs else '?'} registers, spill stores {spill.group(1) if spill else '?'} B, "
                   f"spill loads {spill.group(2) if spill else '?'} B", flush=True)
             if "sm90" in entry:
-                check("ptxas: sm90 forward spills nothing", bool(spill) and spill.groups() == ("0", "0"),
+                check(f"ptxas: {kernel.group(1) if kernel else entry} spills nothing",
+                      bool(spill) and spill.groups() == ("0", "0"),
                       spill.group(0) if spill else "no spill line in the report")
-    smem, ctas = ctypes.c_int(), ctypes.c_int()
-    lib = att._kernels("attention_fwd_sm90")
-    err = lib.rtt_attn_fwd_sm90_occupancy(ctypes.byref(smem), ctypes.byref(ctas))
-    check("sm90 forward occupancy query", err == 0, f"error {err}")
-    print(f"occupancy attn_fwd_sm90_kernel: {smem.value} bytes of dynamic shared memory, "
-          f"{ctas.value} CTAs (of 256 threads) per SM", flush=True)
+    for name, threads in (("attn_fwd_sm90", 256), ("attn_bwd_sm90", 128)):
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        lib = att._kernels(name.replace("attn", "attention"))
+        err = getattr(lib, f"rtt_{name}_occupancy")(ctypes.byref(smem), ctypes.byref(ctas))
+        check(f"{name} occupancy query", err == 0, f"error {err}")
+        print(f"occupancy {name}_kernel: {smem.value} bytes of dynamic shared memory, "
+              f"{ctas.value} CTAs (of {threads} threads) per SM", flush=True)
 
 
 def main() -> int:
@@ -387,7 +409,9 @@ def main() -> int:
 
     # 4. the slice, then path (d)
     launches = slice_phase(att, smi)
-    launches["causal_attention_fwd_wmma"] = d128_phase(att)["causal_attention_fwd_wmma"]
+    d128 = d128_phase(att)
+    for name in ("causal_attention_fwd_wmma", "causal_attention_bwd_wmma"):
+        launches[name] = d128[name]
 
     info = {  # name -> (source, replaces, status)
         "causal_attention_fwd_sm90": (
@@ -398,9 +422,14 @@ def main() -> int:
             "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:1137",
             "ported (WMMA); bf16 at D=128 and float32, launches from path (d); "
             "timed and checked at the main path's shape beside the sm90 kernel"),
-        "causal_attention_bwd": (
-            "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:2196",  # _splash_attention_bwd_dkv, fused
-            "ported; also serves impl='flash' (flash_attention.py:1121/1456)"),
+        "causal_attention_bwd_sm90": (
+            "ray_tpu_torch/ops/csrc/attention_bwd_sm90.cu", f"{TPU_KERNELS}:2196",  # _splash_attention_bwd_dkv, fused
+            "ported (wgmma, TMA, bulk reduce-add of dq); bf16 at D=64, the main path's backward; "
+            "also serves impl='flash' (flash_attention.py:1121/1456)"),
+        "causal_attention_bwd_wmma": (
+            "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:2196",
+            "ported (WMMA); bf16 at D=128 and float32, launches from path (d); "
+            "timed and checked at the main path's shape beside the sm90 kernel"),
     }
     kernels = [
         {

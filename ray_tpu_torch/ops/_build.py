@@ -4,9 +4,10 @@ Each source under `csrc/` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface.  No PyTorch header is included, so a build
 takes seconds, not the minutes that `torch.utils.cpp_extension.load` needs.
 Libraries are written to `_build/` beside this file (git-ignored), named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  A failed build raises: there is no
-fallback.
+hash of the source, the headers of `csrc/` that it includes (`#include
+"..."`, followed through headers), and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.  A failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -46,12 +48,28 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(src: Path) -> List[Path]:
+    """`src` and every header it includes by `#include "..."`, directly or
+    through another header, each once, in the order they are met."""
+    found, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path not in found:
+            found.append(path)
+            todo.extend(path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes()))
+    return found
+
+
 def build(name: str) -> Path:
     """Compile `csrc/<name>.cu` into `_build/` unless the same source was
     built already; returns the library's path.  The compiler's resource
     report (registers, shared memory, spills) is kept beside it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(path.read_bytes() for path in sources(src))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

@@ -4,10 +4,11 @@ the CPU.
 Port of `ray_tpu/ops/attention.py`.  There, `impl="auto"` reaches the TPU
 splash-attention kernels (forward, and a fused backward giving dq, dk, dv)
 and `impl="flash"` the TPU flash-attention kernels.  Here every one of those
-names launches the CUDA kernels on a CUDA tensor: the forward of
-`csrc/attention_fwd_sm90.cu` (wgmma, TMA) for bfloat16 at head dim 64, the
-forward of `csrc/causal_attention.cu` for the other dtypes and head dims
-(`_FWD_ROUTES`), and the fused backward of `csrc/causal_attention.cu`.  Only
+names launches the CUDA kernels on a CUDA tensor: for bfloat16 at head dim
+64 the forward of `csrc/attention_fwd_sm90.cu` and the fused backward of
+`csrc/attention_bwd_sm90.cu` (wgmma, TMA), for the other dtypes and head
+dims the forward and fused backward of `csrc/causal_attention.cu` (WMMA),
+chosen by the tables `_FWD_ROUTES` and `_BWD_ROUTES`.  Only
 `impl="xla"` names the plain version, the port of `_xla_causal_attention`.
 On a CPU tensor every impl runs the plain version.
 
@@ -44,15 +45,32 @@ _FWD_KERNELS = {
     "sm90": ("attention_fwd_sm90", "rtt_attn_fwd_sm90", "causal_attention_fwd_sm90"),
     "wmma": ("causal_attention", "rtt_attn_fwd", "causal_attention_fwd_wmma"),
 }
+# The same for the fused backward: "sm90" is attention_bwd_sm90.cu, "wmma"
+# causal_attention.cu's attn_bwd_kernel.
+_BWD_ROUTES = {
+    (torch.bfloat16, 64): "sm90",
+    (torch.bfloat16, 128): "wmma",
+    (torch.float32, 64): "wmma",
+    (torch.float32, 128): "wmma",
+}
+_BWD_KERNELS = {
+    "sm90": ("attention_bwd_sm90", "rtt_attn_bwd_sm90", "causal_attention_bwd_sm90"),
+    "wmma": ("causal_attention", "rtt_attn_bwd", "causal_attention_bwd_wmma"),
+}
+# the sm90 backward's q tile: its f32 dq accumulator holds whole tiles
+BWD_SM90_TILE = 64
 
 # Launches of each kernel since the last reset_launch_counts(): a run reads
 # them to show that it went through the kernels.  "causal_attention_fwd"
-# counts every forward launch, the two after it each forward kernel's.
+# and "causal_attention_bwd" count every forward and backward launch, the
+# others each kernel's.
 LAUNCHES = {
     "causal_attention_fwd": 0,
     "causal_attention_fwd_sm90": 0,
     "causal_attention_fwd_wmma": 0,
     "causal_attention_bwd": 0,
+    "causal_attention_bwd_sm90": 0,
+    "causal_attention_bwd_wmma": 0,
 }
 
 
@@ -89,6 +107,10 @@ _ENTRY_POINTS = {
         "rtt_attn_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _STRIDES, _P],
     },
     "attention_fwd_sm90": {"rtt_attn_fwd_sm90": _FWD_ARGTYPES, "rtt_attn_fwd_sm90_occupancy": [_P, _P]},
+    "attention_bwd_sm90": {
+        "rtt_attn_bwd_sm90": [_I, _I, *[_P] * 11, _I, _I, _I, _STRIDES, _P],
+        "rtt_attn_bwd_sm90_occupancy": [_P, _P],
+    },
 }
 
 
@@ -157,25 +179,52 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[to
     return _launch_fwd(_FWD_ROUTES[(q.dtype, q.shape[-1])], q, k, v)
 
 
-def attention_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the fused backward kernel: (dq, dk, dv) for pre-scaled q.  dq
-    is summed in f32 by atomics across k/v tiles, then cast to q's dtype."""
-    lib = _kernels()
+def _launch_bwd(route: str, q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused backward kernel of `route` (a key of `_BWD_KERNELS`)."""
+    name, entry, counter = _BWD_KERNELS[route]
+    lib = _kernels(name)
     B, S, H, D = q.shape
     do = _contiguous_aligned(do)
-    # di = rowsum(dO * O), computed outside the kernel as splash does
-    di = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
-    dq_acc = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    err = lib.rtt_attn_bwd(
-        _KERNEL_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, S, _qkv_strides(q, k, v), _stream(q.device),
-    )
-    _raise_on_error(lib, err, "causal_attention_bwd")
+    strides, stream = _qkv_strides(q, k, v), _stream(q.device)
+    if route == "sm90":
+        # the entry point fills di, zeroes the f32 dq accumulator and casts
+        # it to dq; the accumulator holds whole 64-row tiles (rows padded to
+        # a multiple of 64), each a contiguous 16 KB block in 8-column blocks
+        di = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        s_pad = -(-S // BWD_SM90_TILE) * BWD_SM90_TILE
+        dq_acc = torch.empty((B, H, s_pad, D), dtype=torch.float32, device=q.device)
+        dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+        o = _contiguous_aligned(o)
+        err = getattr(lib, entry)(
+            _KERNEL_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, S, strides, stream,
+        )
+    else:
+        # di = rowsum(dO * O), computed outside the kernel as splash does;
+        # dq summed in f32 by atomics across k/v tiles, then cast
+        di = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+        dq_acc = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+        err = getattr(lib, entry)(
+            _KERNEL_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, S, strides, stream,
+        )
+    _raise_on_error(lib, err, counter)
+    if route == "wmma":
+        dq = dq_acc.to(q.dtype)
     LAUNCHES["causal_attention_bwd"] += 1
-    return dq_acc.to(q.dtype), dk, dv
+    LAUNCHES[counter] += 1
+    return dq, dk, dv
+
+
+def attention_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused backward kernel that `_BWD_ROUTES` names for q's
+    dtype and head dim: (dq, dk, dv) in q's dtype for pre-scaled q, from the
+    forward's o and lse and the upstream gradient do."""
+    return _launch_bwd(_BWD_ROUTES[(q.dtype, q.shape[-1])], q, k, v, o, lse, do)
 
 
 class _CausalAttention(torch.autograd.Function):

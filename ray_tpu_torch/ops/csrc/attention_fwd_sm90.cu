@@ -53,16 +53,11 @@
 // caller's stream, allocates nothing, and returns an error code (0 on
 // success).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
-#include <stdio.h>
+
+#include "sm90_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int D = 64;           // head dim: a bf16 row is one 128-byte swizzle row
 constexpr int ROW_BYTES = D * 2;
@@ -84,105 +79,6 @@ struct Smem {  // byte offsets from a 1024-byte aligned base
   static constexpr int bar = v + STAGES * KV;  // mbarriers: q, full[STAGES], empty[STAGES]
   static constexpr int bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarrier
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(bar) : "memory");
-}
-// Wait for the phase of parity `parity` to complete.  A wait that never ends
-// (a lost transfer) traps after seconds instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 26)) __trap();
-  }
-}
-
-// -------------------------------------------------------------------- TMA
-
-// One box of a 4-D tensor map (D, H, S, B) into shared memory; completion is
-// counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int s,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(s), "r"(b)
-      : "memory");
-}
-
-// ------------------------------------------------------------------ wgmma
-
-// Shared-memory matrix descriptor for a tile in the 128-byte swizzle layout
-// (8 rows of 128 bytes per 1024-byte atom).  LBO and SBO in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] * B[16 x 64]; A from registers (four bf16x2 per
-// thread, the accumulator's own layout), B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 
 // ----------------------------------------------------------------- kernel
 
@@ -234,7 +130,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const int r_hi = r_lo + 8;
   const int c_off = 2 * (lane % 4);                     // its column pair in each n8 chunk
   const int last_j = min(n_kv - 1, (wrow0 + 63) / BN);  // tiles past it are all masked for this warpgroup
-  const uint64_t desc_q = sw128_desc(base + L::q + wg * 64 * ROW_BYTES, 16, 1024);
+  const uint64_t desc_q = kmajor_desc(base + L::q + wg * 64 * ROW_BYTES);
 
   float acc_o[NO];
 #pragma unroll
@@ -252,13 +148,13 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       float acc_s[NS];
 #pragma unroll
       for (int i = 0; i < NS; ++i) acc_s[i] = 0.f;
-      const uint64_t desc_k = sw128_desc(base + L::k + s * L::KV, 16, 1024);
+      const uint64_t desc_k = kmajor_desc(base + L::k + s * L::KV);
       wgmma_fence();
       fence_regs(acc_s);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(acc_s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0, 0>(acc_s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(acc_s);
 
       // causal mask, only on tiles that reach past this warpgroup's first row
@@ -319,15 +215,14 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         p[kk][2] = pack_bf16(acc_s[8 * kk + 4], acc_s[8 * kk + 5]);
         p[kk][3] = pack_bf16(acc_s[8 * kk + 6], acc_s[8 * kk + 7]);
       }
-      // O += P V: B = V tile, MN-major; a k-step is 16 key rows = 2048 bytes.
-      // LBO = SBO = 1024: the stride between 8-row groups (D=64 is one atom wide).
-      const uint64_t desc_v = sw128_desc(base + L::v + s * L::KV, 1024, 1024);
+      // O += P V: B = V tile, MN-major; a k-step is 16 key rows = 2048 bytes
+      const uint64_t desc_v = mnmajor_desc(base + L::v + s * L::KV);
       wgmma_fence();
       fence_regs(acc_o);
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc_o, p[kk], desc_v + 128 * kk);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(acc_o);
     }
     // this warp is done with stage s; thread 0 refills it once all are
@@ -379,54 +274,13 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
 // ------------------------------------------------------------------- host
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Error codes beyond cudaError_t's: libcuda has no tensor-map encoder, or
-// the encoder refused a tensor map (kMapError + its CUresult).
-constexpr int kNoEncoder = 90000;
-constexpr int kMapError = 100000;
-
-// cuTensorMapEncodeTiled through the runtime, so the build needs no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map over one [B, S, H, D] bf16 view with element strides (batch,
-// seq, head), dims ordered (D, H, S, B); a box is `rows` rows of one head.
-int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, const long long* st, int rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2, static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {D, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
-}
-
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int S,
            const long long* st, cudaStream_t stream) {
   using L = Smem;
   CUtensorMap tq, tk, tv;
-  int e = make_map(&tq, q, B, H, S, st, BM);
-  if (e == 0) e = make_map(&tk, k, B, H, S, st + 3, BN);
-  if (e == 0) e = make_map(&tv, v, B, H, S, st + 6, BN);
+  int e = make_map(&tq, q, B, H, S, D, st, BM);
+  if (e == 0) e = make_map(&tk, k, B, H, S, D, st + 3, BN);
+  if (e == 0) e = make_map(&tv, v, B, H, S, D, st + 6, BN);
   if (e != 0) return e;
   auto kern = attn_fwd_sm90_kernel;
   cudaError_t ce = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
@@ -442,7 +296,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // bfloat16 (the only one taken); D must be 64.  strides: 9 element strides
 // (batch, seq, head) of q, k, v, each a multiple of 8 elements.  o is
 // contiguous [B, S, H, D]; lse contiguous [B, H, S].  Returns 0, a
-// cudaError_t, or one of the codes above; rtt_error_string names it.
+// cudaError_t, or an error code of sm90_common.cuh; rtt_error_string names
+// it.
 extern "C" int rtt_attn_fwd_sm90(int dtype, int Dh, const void* q, const void* k, const void* v, void* o,
                                  float* lse, int B, int H, int S, const long long* strides, void* stream) {
   if (dtype != 0 || Dh != D) return cudaErrorInvalidValue;
@@ -458,12 +313,4 @@ extern "C" int rtt_attn_fwd_sm90_occupancy(int* smem_bytes, int* ctas_per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, attn_fwd_sm90_kernel, NTHREADS, Smem::bytes);
 }
 
-extern "C" const char* rtt_error_string(int err) {
-  static char buf[96];
-  if (err == kNoEncoder) return "cuTensorMapEncodeTiled not found in libcuda";
-  if (err >= kMapError) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)", err - kMapError);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* rtt_error_string(int err) { return error_string(err); }

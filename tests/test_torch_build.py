@@ -43,6 +43,28 @@ def test_built_library_is_reused_and_edit_rebuilds(tmp_path, monkeypatch):
     assert not list((tmp_path / "_build").glob("*.tmp"))
 
 
+def test_edited_header_rebuilds_every_source_that_includes_it(tmp_path, monkeypatch):
+    _digest_path(tmp_path, monkeypatch, '#include "common.cuh"\n#include <cuda.h>\n')
+    csrc = tmp_path / "csrc"
+    (csrc / "common.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("// v1\n")
+    (csrc / "other.cu").write_text("// includes nothing\n")
+    calls = []
+
+    def fake_nvcc(cmd, **kw):
+        calls.append(cmd[-1])
+        open(cmd[cmd.index("-o") + 1], "wb").write(b"lib")
+        return types.SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", fake_nvcc)
+    assert _build.sources(csrc / "k.cu") == [csrc / "k.cu", csrc / "common.cuh", csrc / "inner.cuh"]
+    first, other = _build.build("k"), _build.build("other")
+    (csrc / "inner.cuh").write_text("// v2\n")  # included through common.cuh
+    assert _build.build("k") != first and _build.build("other") == other
+    assert calls == [str(csrc / "k.cu"), str(csrc / "other.cu"), str(csrc / "k.cu")]
+
+
 def test_failed_compile_raises_and_leaves_nothing(tmp_path, monkeypatch):
     _digest_path(tmp_path, monkeypatch, "broken\n")
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")

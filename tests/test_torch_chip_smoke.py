@@ -57,3 +57,14 @@ def test_attention_flops_at_gpt2_shape():
     assert chip_smoke.attention_flops(B, S, H, D) == 2 * 2 * D * B * H * S * (S + 1) // 2
     ops_ms = chip_smoke.attention_flops(B, S, H, D) / 989e12 * 1e3
     assert chip_smoke.attention_bounds(B, S, H, D)["causal_attention_fwd"][0] >= ops_ms
+
+
+def test_backward_flops_give_the_backward_bound():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    B, S, H, D = chip_smoke.SLICE_ATTN
+    # five products (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) over the causal pairs
+    flops = chip_smoke.attention_flops(B, S, H, D, products=5)
+    assert flops == 2 * 5 * D * B * H * S * (S + 1) // 2
+    assert chip_smoke.attention_bounds(B, S, H, D)["causal_attention_bwd"][0] == pytest.approx(flops / 989e12 * 1e3)
