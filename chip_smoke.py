@@ -30,9 +30,23 @@ Phases:
      the sm90 kernels.  (d) the D=128 path: one forward and backward through
      causal_attention at Llama's head dim, counters reset before and read
      after, which launches attn_fwd_kernel and attn_bwd_kernel.
+  5. (e) the product path: ray_tpu_torch.init starts a cluster (head,
+     zygote, workers: separate processes) that must count one GPU; a
+     TorchTrainer fit runs the same 2 + 10 steps of (b) from the same
+     weights and batch in a GPU worker actor, which resets the launch
+     counters before its steps, reads them after and reports once.  Checked:
+     the worker is another process on this card with no jax or ray_tpu
+     module loaded; 288 forward and 144 backward launches, all on the sm90
+     kernels; its first loss within 1e-3 relative of (b)'s (same weights,
+     same batch, same kernels: the forward is the same computation); the
+     loss falls; its tokens/s at least 0.9 of (b)'s; a pool task sees
+     CUDA_VISIBLE_DEVICES="" and resolve_device() raises there; and
+     shutdown() leaves no process of its cluster (the head and all
+     below it) behind.
 Then one JSON line on the kernels and, last, {"ok": true, "device": ...}.
-Any failed check makes the script exit 1 without that last line.  It exits 2
-when no CUDA device is present.
+Any failed check makes the script exit 1 without that last line, and an
+exception in any phase ends it with a traceback.  It exits 2 when no CUDA
+device is present.
 
 Tolerances (bf16 kernel checks), FlashAttention's own test rule: the kernel's
 max |error| against the float32 reference may be at most twice the plain
@@ -266,34 +280,21 @@ def timing_phase(att):
     return times, plain, library, bounds
 
 
-def slice_phase(att, card):
-    from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
-    from ray_tpu_torch.models.lm_train import make_train_step, synthetic_batch
+SLICE_BATCH, SLICE_WARMUP, SLICE_STEPS = 18, 2, 10  # (b) and (e)
 
-    cfg = GPT2Config.gpt2_124m()
+
+def slice_batches(cfg, batch):
+    """(a)'s batch-2 batch, then the main path's: both drawn, in this order,
+    from one CUDA generator seeded 1, so that (e)'s worker draws (b)'s batch."""
+    from ray_tpu_torch.models.lm_train import synthetic_batch
+
     gen = torch.Generator(device="cuda").manual_seed(1)
+    small = synthetic_batch(gen, 2, cfg.block_size, cfg.vocab_size)
+    return small, synthetic_batch(gen, batch, cfg.block_size, cfg.vocab_size)
 
-    # (a) one step at batch 2 from identical weights: kernels vs plain attention
-    tok, tgt = synthetic_batch(gen, 2, cfg.block_size, cfg.vocab_size)
-    metrics = {}
-    for impl in ("auto", "xla"):
-        bundle = make_train_step(GPT2Model(dataclasses.replace(cfg, attention_impl=impl), seed=0))
-        params, opt = bundle.init(0)
-        _, _, m = bundle.step(params, opt, tok, tgt)
-        metrics[impl] = (m["loss"].item(), m["grad_norm"].item())
-        del bundle, params, opt
-    (lk, gk), (lp, gp) = metrics["auto"], metrics["xla"]
-    check("slice (a) loss kernel vs plain", abs(lk - lp) <= 1e-3 * abs(lp), f"{lk:.6f} vs {lp:.6f}")
-    check("slice (a) grad_norm kernel vs plain", abs(gk - gp) <= 1e-2 * abs(gp), f"{gk:.6f} vs {gp:.6f}")
 
-    # (b) the main path: 2 warm-up + 10 timed steps at bench batch 18
-    batch, warmup, steps = 18, 2, 10
-    bundle = make_train_step(GPT2Model(cfg, seed=0))
-    params, opt = bundle.init(0)
-    tok, tgt = synthetic_batch(gen, batch, cfg.block_size, cfg.vocab_size)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    att.reset_launch_counts()
+def timed_steps(bundle, params, opt, tok, tgt, warmup, steps):
+    """warmup + steps training steps; (losses, seconds of the timed steps)."""
     losses = []
     for _ in range(warmup):
         params, opt, m = bundle.step(params, opt, tok, tgt)
@@ -304,9 +305,37 @@ def slice_phase(att, card):
         params, opt, m = bundle.step(params, opt, tok, tgt)
         losses.append(m["loss"])
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    return [x.item() for x in losses], time.perf_counter() - t0
+
+
+def slice_phase(att, card):
+    from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from ray_tpu_torch.models.lm_train import make_train_step
+
+    cfg = GPT2Config.gpt2_124m()
+    batch, warmup, steps = SLICE_BATCH, SLICE_WARMUP, SLICE_STEPS
+    (tok, tgt), (tok_b, tgt_b) = slice_batches(cfg, batch)
+
+    # (a) one step at batch 2 from identical weights: kernels vs plain attention
+    metrics = {}
+    for impl in ("auto", "xla"):
+        bundle = make_train_step(GPT2Model(dataclasses.replace(cfg, attention_impl=impl), seed=0))
+        params, opt = bundle.init(0)
+        m = bundle.step(params, opt, tok, tgt)[2]  # no name keeps this optimizer alive into (b)
+        metrics[impl] = (m["loss"].item(), m["grad_norm"].item())
+        del bundle, params, opt
+    (lk, gk), (lp, gp) = metrics["auto"], metrics["xla"]
+    check("slice (a) loss kernel vs plain", abs(lk - lp) <= 1e-3 * abs(lp), f"{lk:.6f} vs {lp:.6f}")
+    check("slice (a) grad_norm kernel vs plain", abs(gk - gp) <= 1e-2 * abs(gp), f"{gk:.6f} vs {gp:.6f}")
+
+    # (b) the main path: 2 warm-up + 10 timed steps at bench batch 18
+    bundle = make_train_step(GPT2Model(cfg, seed=0))
+    params, opt = bundle.init(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    losses, dt = timed_steps(bundle, params, opt, tok_b, tgt_b, warmup, steps)
     launches = dict(att.LAUNCHES)
-    losses = [x.item() for x in losses]
     ms_step = dt / steps * 1e3
     tok_s = batch * cfg.block_size * steps / dt
     mfu = tok_s * cfg.flops_per_token() / BF16_PEAK_FLOPS
@@ -314,21 +343,162 @@ def slice_phase(att, card):
           f"{ms_step:.2f} ms/step, {tok_s:.0f} tokens/s, model FLOP/s {100 * mfu:.2f}% of bf16 peak, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"slice losses {['%.4f' % x for x in losses]}", flush=True)
-    total = warmup + steps
-    per_fwd = 2 * cfg.n_layer if cfg.remat else cfg.n_layer  # remat re-runs each forward
     check("slice (b) losses finite", all(math.isfinite(x) for x in losses), f"{losses[0]:.4f} .. {losses[-1]:.4f}")
     check("slice (b) loss falls", losses[-1] < losses[0], f"first {losses[0]:.4f} last {losses[-1]:.4f}")
-    check("slice (c) forward launches", launches["causal_attention_fwd"] == per_fwd * total,
+    check_launches("slice (c)", cfg, launches, warmup + steps)
+    return launches, {"losses": losses, "tokens_per_s": tok_s}
+
+
+def check_launches(what, cfg, launches, total):
+    """Every forward and backward launch of `total` steps was on the sm90 kernels."""
+    per_fwd = 2 * cfg.n_layer if cfg.remat else cfg.n_layer  # remat re-runs each forward
+    check(f"{what} forward launches", launches["causal_attention_fwd"] == per_fwd * total,
           f"{launches['causal_attention_fwd']} for {total} steps")
-    check("slice (c) forward launches on the sm90 kernel",
+    check(f"{what} forward launches on the sm90 kernel",
           launches["causal_attention_fwd_sm90"] == per_fwd * total and launches["causal_attention_fwd_wmma"] == 0,
           f"sm90 {launches['causal_attention_fwd_sm90']}, wmma {launches['causal_attention_fwd_wmma']}")
-    check("slice (c) backward launches", launches["causal_attention_bwd"] == cfg.n_layer * total,
+    check(f"{what} backward launches", launches["causal_attention_bwd"] == cfg.n_layer * total,
           f"{launches['causal_attention_bwd']} for {total} steps")
-    check("slice (c) backward launches on the sm90 kernel",
+    check(f"{what} backward launches on the sm90 kernel",
           launches["causal_attention_bwd_sm90"] == cfg.n_layer * total and launches["causal_attention_bwd_wmma"] == 0,
           f"sm90 {launches['causal_attention_bwd_sm90']}, wmma {launches['causal_attention_bwd_wmma']}")
-    return launches
+
+
+def trainer_loop(config):
+    """(e)'s train loop, run by TorchTrainer in the GPU worker actor: (b)'s
+    model, weights, batch and steps; the launch counters reset just before
+    the steps and read just after; one report."""
+    import os
+    import sys
+
+    import torch  # a local name: cloudpickle cannot ship torch.backends.cudnn by reference
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from ray_tpu_torch.models.lm_train import make_train_step
+    from ray_tpu_torch.ops import attention as att
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in the driver (phase 1)
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPT2Config.gpt2_124m()
+    batch, warmup, steps = config["batch"], config["warmup"], config["steps"]
+    _, (tok, tgt) = slice_batches(cfg, batch)
+    bundle = make_train_step(GPT2Model(cfg, seed=0))
+    params, opt = bundle.init(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    losses, dt = timed_steps(bundle, params, opt, tok, tgt, warmup, steps)
+    launches = dict(att.LAUNCHES)
+    session.report({
+        "tokens_per_s": batch * cfg.block_size * steps / dt,
+        "ms_per_step": dt / steps * 1e3,
+        "losses": losses,
+        "launches": launches,
+        "device": torch.cuda.get_device_name(),
+        "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "forbidden_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+
+
+def pool_probe():
+    """Runs in a pool worker (no GPU asked): what it sees of the card."""
+    import os
+
+    from ray_tpu_torch import resolve_device
+
+    try:
+        resolve_device()
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"), "resolve_device_raised": raised}
+
+
+def _proc_stat(pid):
+    """(state, parent pid, start time) of a live process, or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+    return fields[0], int(fields[1]), int(fields[19])
+
+
+def session_processes(root):
+    """{pid: start time} of `root` and every live process below it, read
+    from /proc: this run's cluster, never another checkout's."""
+    stats = {int(e): st for e in os.listdir("/proc") if e.isdigit() and (st := _proc_stat(e))}
+    out, stack = {}, [root]
+    while stack:
+        pid = stack.pop()
+        if pid in stats and stats[pid][0] != "Z":
+            out[pid] = stats[pid][2]
+        stack.extend(p for p, st in stats.items() if st[1] == pid)
+    return out
+
+
+def trainer_phase(kind, card, direct):
+    """(e): GPT-2 124M through ray_tpu_torch.init → TorchTrainer → a GPU
+    worker actor, held against (b), the same steps in this process."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    from ray_tpu_torch._private.worker import global_worker
+
+    cfg = GPT2Config.gpt2_124m()
+    torch.cuda.empty_cache()  # the worker needs the card's memory, not this process
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU", 0)
+        check("trainer (e) cluster counts one GPU", gpus == 1, f"cluster_resources GPU = {gpus}")
+        result = TorchTrainer(
+            trainer_loop,
+            train_loop_config={"batch": SLICE_BATCH, "warmup": SLICE_WARMUP, "steps": SLICE_STEPS},
+            scaling_config=ScalingConfig(num_workers=1),
+        ).fit()
+        pool = ray_tpu_torch.get(ray_tpu_torch.remote(pool_probe).remote(), timeout=120)
+    finally:
+        cluster = session_processes(global_worker.head_proc.pid)
+        ray_tpu_torch.shutdown()
+    fit_s = time.perf_counter() - t0
+    m = result.metrics
+    losses, launches = m["losses"], m["launches"]
+    ratio = m["tokens_per_s"] / direct["tokens_per_s"]
+    print(f"trainer (e) GPT-2 124M B={SLICE_BATCH} S={cfg.block_size} through TorchTrainer on {card}: "
+          f"{m['ms_per_step']:.2f} ms/step, {m['tokens_per_s']:.0f} tokens/s, {ratio:.4f} of slice (b)'s "
+          f"{direct['tokens_per_s']:.0f}; peak memory {m['peak_memory_gib']:.2f} GiB; init + fit + shutdown "
+          f"{fit_s:.1f} s", flush=True)
+    print(f"trainer (e) worker pid {m['pid']} (driver {os.getpid()}), device {m['device']}, "
+          f"CUDA_VISIBLE_DEVICES={m['cuda_visible_devices']!r}, jax/ray_tpu modules {m['forbidden_modules']}", flush=True)
+    print(f"trainer (e) losses {['%.4f' % x for x in losses]}", flush=True)
+    print(f"trainer (e) launches {launches}", flush=True)
+    print(f"trainer (e) pool task: CUDA_VISIBLE_DEVICES={pool['cuda_visible_devices']!r}, "
+          f"resolve_device() raised: {pool['resolve_device_raised'][:80]!r}", flush=True)
+    check("trainer (e) worker is another process", m["pid"] != os.getpid(), f"worker {m['pid']}, driver {os.getpid()}")
+    check("trainer (e) worker on this card", m["device"] == kind, f"{m['device']!r} vs {kind!r}")
+    check("trainer (e) worker loads no jax or ray_tpu module", m["forbidden_modules"] == [], f"{m['forbidden_modules']}")
+    check_launches("trainer (e)", cfg, launches, SLICE_WARMUP + SLICE_STEPS)
+    d0 = direct["losses"][0]
+    check("trainer (e) first loss vs slice (b)", abs(losses[0] - d0) <= 1e-3 * abs(d0), f"{losses[0]:.6f} vs {d0:.6f}, difference {losses[0] - d0:.3e}")
+    check("trainer (e) losses finite", all(math.isfinite(x) for x in losses), f"{losses[0]:.4f} .. {losses[-1]:.4f}")
+    check("trainer (e) loss falls", losses[-1] < losses[0], f"first {losses[0]:.4f} last {losses[-1]:.4f}")
+    check("trainer (e) tokens/s >= 0.9 x slice (b)", ratio >= 0.9, f"ratio {ratio:.4f}")
+    check("trainer (e) pool worker sees no card", pool["cuda_visible_devices"] == "" and bool(pool["resolve_device_raised"]),
+          f"CUDA_VISIBLE_DEVICES={pool['cuda_visible_devices']!r}")
+    def left():  # the cluster's processes still alive, and any still below this one
+        return sorted(set(p for p, t in cluster.items() if (st := _proc_stat(p)) and st[0] != "Z" and st[2] == t)
+                      | set(session_processes(os.getpid())) - {os.getpid()})
+
+    deadline = time.monotonic() + 15
+    while left() and time.monotonic() < deadline:
+        time.sleep(0.5)
+    check("trainer (e) shutdown leaves no ray_tpu_torch process", not left(),
+          f"{len(cluster)} processes in the cluster before shutdown, alive after: {left()}")
 
 
 def d128_phase(att):
@@ -408,10 +578,13 @@ def main() -> int:
     times, plain, library, bounds = timing_phase(att)
 
     # 4. the slice, then path (d)
-    launches = slice_phase(att, smi)
+    launches, direct = slice_phase(att, smi)
     d128 = d128_phase(att)
     for name in ("causal_attention_fwd_wmma", "causal_attention_bwd_wmma"):
         launches[name] = d128[name]
+
+    # 5. (e) the product path: the slice through TorchTrainer in a GPU worker
+    trainer_phase(kind, smi, direct)
 
     info = {  # name -> (source, replaces, status)
         "causal_attention_fwd_sm90": (

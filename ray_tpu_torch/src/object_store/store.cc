@@ -1,0 +1,426 @@
+// Shared-memory object store: the node-local zero-copy data plane.
+//
+// TPU-native equivalent of the reference's Plasma store (reference:
+// src/ray/object_manager/plasma/{store.cc,object_lifecycle_manager.h,
+// plasma_allocator.cc,dlmalloc.cc,eviction_policy.h}).  Differences by
+// design: instead of a store *server* process with a unix-socket protocol
+// and fd-passing (plasma/fling.cc), every client maps one shared segment
+// and operates on it directly under a process-shared robust mutex — on a
+// TPU-VM host all workers are local, so the socket hop is pure overhead.
+// Create/seal/get/release/delete + LRU eviction of unpinned sealed objects
+// match plasma semantics; sealed buffers are immutable and consumable
+// zero-copy (numpy/jax via dlpack from the mapped pages).
+//
+// Layout of the segment:
+//   [Header][Slot * nslots][FreeBlock * MAX_FREE][data region ...]
+//
+// Build: g++ -O2 -shared -fPIC -o libray_tpu_torch_store.so store.cc -lpthread
+
+#include <algorithm>
+#include <cerrno>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+#include <fcntl.h>
+#include <pthread.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
+
+namespace {
+
+constexpr uint64_t kMagic = 0x7470755f73746f72ULL;  // "tpu_stor"
+constexpr uint32_t kIdLen = 28;
+constexpr uint64_t kMaxFree = 1 << 14;
+constexpr uint64_t kAlign = 64;
+
+enum SlotState : uint32_t {
+  EMPTY = 0,
+  ALLOCATED = 1,  // created, not yet sealed
+  SEALED = 2,
+  TOMBSTONE = 3,
+};
+
+struct Slot {
+  uint8_t id[kIdLen];
+  uint32_t state;
+  int32_t refcount;  // pins from get(); evictable only at 0
+  uint64_t offset;   // into data region
+  uint64_t size;     // total payload bytes
+  uint64_t lru_tick;
+};
+
+struct FreeBlock {
+  uint64_t offset;
+  uint64_t size;
+};
+
+struct Header {
+  uint64_t magic;
+  uint64_t capacity;   // data region bytes
+  uint64_t nslots;
+  uint64_t used;       // allocated bytes
+  uint64_t lru_clock;
+  uint64_t nfree;      // entries in free list
+  uint64_t num_objects;
+  uint64_t evictions;
+  pthread_mutex_t mutex;
+};
+
+struct Store {
+  Header* hdr;
+  Slot* slots;
+  FreeBlock* freelist;
+  uint8_t* data;
+  void* base;
+  uint64_t mapped_size;
+};
+
+uint64_t hash_id(const uint8_t* id) {
+  // FNV-1a over the 28-byte id
+  uint64_t h = 1469598103934665603ULL;
+  for (uint32_t i = 0; i < kIdLen; i++) {
+    h ^= id[i];
+    h *= 1099511628211ULL;
+  }
+  return h;
+}
+
+uint64_t align_up(uint64_t v) { return (v + kAlign - 1) & ~(kAlign - 1); }
+
+class Locker {
+ public:
+  explicit Locker(Header* h) : h_(h) {
+    int rc = pthread_mutex_lock(&h_->mutex);
+    if (rc == EOWNERDEAD) {
+      // A worker died holding the lock; state is still consistent because
+      // all mutations are single-field or ordered (same recovery stance as
+      // plasma's store-restart).  Mark consistent and continue.
+      pthread_mutex_consistent(&h_->mutex);
+    }
+  }
+  ~Locker() { pthread_mutex_unlock(&h_->mutex); }
+
+ private:
+  Header* h_;
+};
+
+// Find slot for id, or an insertion slot if insert==true.
+Slot* find_slot(Store* s, const uint8_t* id, bool insert) {
+  uint64_t n = s->hdr->nslots;
+  uint64_t i = hash_id(id) % n;
+  Slot* first_tomb = nullptr;
+  for (uint64_t probe = 0; probe < n; probe++, i = (i + 1) % n) {
+    Slot* sl = &s->slots[i];
+    if (sl->state == EMPTY) {
+      if (insert) return first_tomb ? first_tomb : sl;
+      return nullptr;
+    }
+    if (sl->state == TOMBSTONE) {
+      if (insert && !first_tomb) first_tomb = sl;
+      continue;
+    }
+    if (memcmp(sl->id, id, kIdLen) == 0) return sl;
+  }
+  return insert ? first_tomb : nullptr;
+}
+
+// First-fit allocate from the free list; returns UINT64_MAX on failure.
+uint64_t alloc_block(Store* s, uint64_t size) {
+  Header* h = s->hdr;
+  for (uint64_t i = 0; i < h->nfree; i++) {
+    FreeBlock* fb = &s->freelist[i];
+    if (fb->size >= size) {
+      uint64_t off = fb->offset;
+      fb->offset += size;
+      fb->size -= size;
+      if (fb->size == 0) {
+        s->freelist[i] = s->freelist[h->nfree - 1];
+        h->nfree--;
+      }
+      h->used += size;
+      return off;
+    }
+  }
+  return UINT64_MAX;
+}
+
+void free_block(Store* s, uint64_t offset, uint64_t size) {
+  Header* h = s->hdr;
+  h->used -= size;  // account before coalescing grows `size` with already-free bytes
+  // insert and coalesce with neighbors
+  uint64_t end = offset + size;
+  for (uint64_t i = 0; i < h->nfree;) {
+    FreeBlock* fb = &s->freelist[i];
+    if (fb->offset + fb->size == offset) {  // fb | block
+      offset = fb->offset;
+      size += fb->size;
+      end = offset + size;
+      s->freelist[i] = s->freelist[h->nfree - 1];
+      h->nfree--;
+      continue;
+    }
+    if (end == fb->offset) {  // block | fb
+      size += fb->size;
+      s->freelist[i] = s->freelist[h->nfree - 1];
+      h->nfree--;
+      continue;
+    }
+    i++;
+  }
+  if (h->nfree < kMaxFree) {
+    s->freelist[h->nfree++] = FreeBlock{offset, size};
+  }
+  // else: leak the block (bounded by kMaxFree fragmentation; extremely rare)
+}
+
+// Evict the least-recently-used sealed, unpinned object.  Returns freed bytes.
+uint64_t evict_one(Store* s) {
+  Header* h = s->hdr;
+  Slot* victim = nullptr;
+  for (uint64_t i = 0; i < h->nslots; i++) {
+    Slot* sl = &s->slots[i];
+    if (sl->state == SEALED && sl->refcount == 0) {
+      if (!victim || sl->lru_tick < victim->lru_tick) victim = sl;
+    }
+  }
+  if (!victim) return 0;
+  uint64_t sz = victim->size;
+  free_block(s, victim->offset, align_up(victim->size));
+  victim->state = TOMBSTONE;
+  h->num_objects--;
+  h->evictions++;
+  return sz;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Create a fresh store segment at `path` (tmpfs file, e.g. /dev/shm/...).
+void* store_create(const char* path, uint64_t capacity, uint64_t nslots) {
+  uint64_t meta = sizeof(Header) + nslots * sizeof(Slot) + kMaxFree * sizeof(FreeBlock);
+  meta = align_up(meta);
+  uint64_t total = meta + capacity;
+  int fd = open(path, O_RDWR | O_CREAT | O_TRUNC, 0600);
+  if (fd < 0) return nullptr;
+  if (ftruncate(fd, (off_t)total) != 0) {
+    close(fd);
+    return nullptr;
+  }
+  void* base = mmap(nullptr, total, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  close(fd);
+  if (base == MAP_FAILED) return nullptr;
+  Store* s = new Store;
+  s->base = base;
+  s->mapped_size = total;
+  s->hdr = (Header*)base;
+  s->slots = (Slot*)((uint8_t*)base + sizeof(Header));
+  s->freelist = (FreeBlock*)((uint8_t*)base + sizeof(Header) + nslots * sizeof(Slot));
+  s->data = (uint8_t*)base + meta;
+  Header* h = s->hdr;
+  memset(h, 0, sizeof(Header));
+  memset(s->slots, 0, nslots * sizeof(Slot));
+  h->capacity = capacity;
+  h->nslots = nslots;
+  h->nfree = 1;
+  s->freelist[0] = FreeBlock{0, capacity};
+  pthread_mutexattr_t attr;
+  pthread_mutexattr_init(&attr);
+  pthread_mutexattr_setpshared(&attr, PTHREAD_PROCESS_SHARED);
+  pthread_mutexattr_setrobust(&attr, PTHREAD_MUTEX_ROBUST);
+  pthread_mutex_init(&h->mutex, &attr);
+  h->magic = kMagic;
+  return s;
+}
+
+// Attach to an existing segment.
+void* store_attach(const char* path) {
+  int fd = open(path, O_RDWR);
+  if (fd < 0) return nullptr;
+  struct stat st;
+  if (fstat(fd, &st) != 0) {
+    close(fd);
+    return nullptr;
+  }
+  void* base = mmap(nullptr, (size_t)st.st_size, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  close(fd);
+  if (base == MAP_FAILED) return nullptr;
+  Header* h = (Header*)base;
+  if (h->magic != kMagic) {
+    munmap(base, (size_t)st.st_size);
+    return nullptr;
+  }
+  Store* s = new Store;
+  s->base = base;
+  s->mapped_size = (size_t)st.st_size;
+  s->hdr = h;
+  s->slots = (Slot*)((uint8_t*)base + sizeof(Header));
+  s->freelist = (FreeBlock*)((uint8_t*)base + sizeof(Header) + h->nslots * sizeof(Slot));
+  uint64_t meta = sizeof(Header) + h->nslots * sizeof(Slot) + kMaxFree * sizeof(FreeBlock);
+  s->data = (uint8_t*)base + align_up(meta);
+  return s;
+}
+
+void store_detach(void* sp) {
+  Store* s = (Store*)sp;
+  munmap(s->base, s->mapped_size);
+  delete s;
+}
+
+// Allocate an object; returns 0 ok (offset from segment base in *out_offset),
+// -1 already exists, -2 out of memory, -3 table full.
+// allow_evict=0 never drops other objects to make room (-2 instead): the
+// spilling path uses this so in-scope data is spilled to disk by policy
+// rather than silently deleted by LRU (reference analog: spilling runs
+// BEFORE eviction of referenced objects, raylet/local_object_manager.h).
+int store_alloc_opts(void* sp, const uint8_t* id, uint64_t size, int allow_evict,
+                     uint64_t* out_offset) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* existing = find_slot(s, id, false);
+  if (existing && existing->state != TOMBSTONE) return -1;
+  uint64_t need = align_up(size);
+  if (need > s->hdr->capacity) return -2;
+  uint64_t off = alloc_block(s, need);
+  while (off == UINT64_MAX) {
+    if (!allow_evict) return -2;
+    if (evict_one(s) == 0) return -2;
+    off = alloc_block(s, need);
+  }
+  Slot* sl = find_slot(s, id, true);
+  if (!sl) {
+    free_block(s, off, need);
+    return -3;
+  }
+  memcpy(sl->id, id, kIdLen);
+  sl->state = ALLOCATED;
+  sl->refcount = 1;  // creator holds a pin until seal+release
+  sl->offset = off;
+  sl->size = size;
+  sl->lru_tick = ++s->hdr->lru_clock;
+  s->hdr->num_objects++;
+  *out_offset = (uint64_t)(s->data - (uint8_t*)s->base) + off;
+  return 0;
+}
+
+int store_alloc(void* sp, const uint8_t* id, uint64_t size, uint64_t* out_offset) {
+  return store_alloc_opts(sp, id, size, 1, out_offset);
+}
+
+// List up to max_n spill/eviction candidates (sealed, unpinned), least
+// recently used first.  out_ids receives max_n*kIdLen bytes, out_sizes the
+// payload sizes.  Returns the count written.
+int store_evict_candidates(void* sp, uint64_t max_n, uint8_t* out_ids,
+                           uint64_t* out_sizes) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  struct Cand {
+    Slot* sl;
+    uint64_t tick;
+  };
+  std::vector<Cand> cands;
+  for (uint64_t i = 0; i < s->hdr->nslots; i++) {
+    Slot* sl = &s->slots[i];
+    if (sl->state == SEALED && sl->refcount == 0) {
+      cands.push_back({sl, sl->lru_tick});
+    }
+  }
+  std::sort(cands.begin(), cands.end(),
+            [](const Cand& a, const Cand& b) { return a.tick < b.tick; });
+  uint64_t n = cands.size() < max_n ? cands.size() : max_n;
+  for (uint64_t i = 0; i < n; i++) {
+    memcpy(out_ids + i * kIdLen, cands[i].sl->id, kIdLen);
+    out_sizes[i] = cands[i].sl->size;
+  }
+  return (int)n;
+}
+
+int store_seal(void* sp, const uint8_t* id) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* sl = find_slot(s, id, false);
+  if (!sl || sl->state != ALLOCATED) return -1;
+  sl->state = SEALED;
+  return 0;
+}
+
+// Pin + locate a sealed object. 0 ok, -1 missing, -3 not sealed yet.
+int store_get(void* sp, const uint8_t* id, uint64_t* out_offset, uint64_t* out_size) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* sl = find_slot(s, id, false);
+  if (!sl || sl->state == TOMBSTONE) return -1;
+  if (sl->state != SEALED) return -3;
+  sl->refcount++;
+  sl->lru_tick = ++s->hdr->lru_clock;
+  *out_offset = (uint64_t)(s->data - (uint8_t*)s->base) + sl->offset;
+  *out_size = sl->size;
+  return 0;
+}
+
+int store_release(void* sp, const uint8_t* id) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* sl = find_slot(s, id, false);
+  if (!sl || sl->state == TOMBSTONE) return -1;
+  if (sl->refcount > 0) sl->refcount--;
+  return 0;
+}
+
+int store_contains(void* sp, const uint8_t* id) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* sl = find_slot(s, id, false);
+  return (sl && sl->state == SEALED) ? 1 : 0;
+}
+
+// Delete regardless of pins (caller must know it is safe) — used by the
+// owner-driven free path.  -1 missing.
+int store_delete(void* sp, const uint8_t* id) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* sl = find_slot(s, id, false);
+  if (!sl || sl->state == TOMBSTONE) return -1;
+  free_block(s, sl->offset, align_up(sl->size));
+  sl->state = TOMBSTONE;
+  s->hdr->num_objects--;
+  return 0;
+}
+
+// Delete only if no reader currently pins the object (spill path: a pinned
+// zero-copy view must never have its backing block freed under it).
+// 0 deleted, -1 missing, -2 pinned.
+int store_delete_if_unpinned(void* sp, const uint8_t* id) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* sl = find_slot(s, id, false);
+  if (!sl || sl->state == TOMBSTONE) return -1;
+  if (sl->refcount > 0) return -2;
+  free_block(s, sl->offset, align_up(sl->size));
+  sl->state = TOMBSTONE;
+  s->hdr->num_objects--;
+  return 0;
+}
+
+// Abort an unsealed create (creator-side failure path).
+int store_abort(void* sp, const uint8_t* id) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  Slot* sl = find_slot(s, id, false);
+  if (!sl || sl->state != ALLOCATED) return -1;
+  free_block(s, sl->offset, align_up(sl->size));
+  sl->state = TOMBSTONE;
+  s->hdr->num_objects--;
+  return 0;
+}
+
+uint64_t store_capacity(void* sp) { return ((Store*)sp)->hdr->capacity; }
+uint64_t store_used(void* sp) { return ((Store*)sp)->hdr->used; }
+uint64_t store_num_objects(void* sp) { return ((Store*)sp)->hdr->num_objects; }
+uint64_t store_evictions(void* sp) { return ((Store*)sp)->hdr->evictions; }
+
+uint8_t* store_base(void* sp) { return (uint8_t*)((Store*)sp)->base; }
+uint64_t store_mapped_size(void* sp) { return ((Store*)sp)->mapped_size; }
+
+}  // extern "C"

@@ -1,0 +1,9 @@
+from ray_tpu_torch.air.checkpoint import Checkpoint  # noqa: F401
+from ray_tpu_torch.air.config import FailureConfig, RunConfig, ScalingConfig  # noqa: F401
+from ray_tpu_torch.air.result import Result  # noqa: F401
+from ray_tpu_torch.train.backend import Backend, BackendConfig  # noqa: F401
+from ray_tpu_torch.train.base_trainer import (  # noqa: F401
+    BaseTrainer,
+    DataParallelTrainer,
+    TorchTrainer,
+)

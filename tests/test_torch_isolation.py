@@ -1,7 +1,11 @@
 """ray_tpu_torch stands alone: no JAX, nothing of ray_tpu, CUDA by default.
 
 - An AST scan of the port's sources and chip_smoke.py finds no import of
-  jax/jaxlib or of ray_tpu (ray_tpu_torch itself is allowed).
+  jax/jaxlib or of ray_tpu (ray_tpu_torch itself is allowed), no string
+  constant that names a ray_tpu module (a `-m ray_tpu.core.worker_main` left
+  in a copied spawn would start the JAX package's worker) or the JAX
+  package's session root, and no ray_tpu_torch import or module-path string
+  that does not resolve to a file of the port.
 - A fresh interpreter that imports every ray_tpu_torch module adds no jax or
   ray_tpu module to sys.modules.
 - With no CUDA device, the default-device entry points raise instead of
@@ -10,6 +14,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,6 +47,55 @@ def test_no_jax_or_ray_tpu_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _constants(tree):
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+
+
+def _port_file(module: str):
+    path = ROOT.joinpath(*module.split("."))
+    for cand in (path / "__init__.py", path.with_suffix(".py")):
+        if cand.is_file():
+            return cand
+    return None
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_string_names_a_ray_tpu_module(path):
+    bad = [c for c in _constants(ast.parse(path.read_text(), filename=str(path)))
+           if c.startswith("ray_tpu.") or c.rstrip("/") == "/tmp/ray_tpu"]
+    assert not bad, f"{path} names {bad}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_fixed_temp_path(path):
+    """Files the port writes live under tempfile.gettempdir(), which
+    honours TMPDIR, so two checkouts on one machine never share them."""
+    bad = [c for c in _constants(ast.parse(path.read_text(), filename=str(path)))
+           if c.startswith(("/tmp", "/var/tmp", "/dev/shm"))]
+    assert not bad, f"{path} writes under a fixed path: {bad}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_port_import_resolves_to_the_port(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    pkg = list(path.relative_to(ROOT).parts[:-1])  # the package a relative import starts from
+    named = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            named += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                base = ".".join(pkg[: len(pkg) - node.level + 1] + ([node.module] if node.module else []))
+            named.append(base)
+            # `from pkg import sub` may name a submodule
+            named += [f"{base}.{a.name}" for a in node.names if _port_file(f"{base}.{a.name}")]
+    # module paths spelled as strings (`-m ray_tpu_torch.core.worker_main`)
+    named += [c for c in _constants(tree) if re.fullmatch(r"ray_tpu_torch(\.\w+)+", c)]
+    missing = sorted({m for m in named if m.split(".")[0] == "ray_tpu_torch" and _port_file(m) is None})
+    assert not missing, f"{path} names modules the port lacks: {missing}"
+
+
 def test_importing_every_module_loads_no_jax():
     code = """
 import pkgutil, importlib, sys
@@ -57,7 +111,7 @@ print(len([m for m in new if m.startswith("ray_tpu_torch")]), bad)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_port, bad = out.stdout.split(" ", 1)
-    assert int(n_port) >= 10 and bad.strip() == "[]", out.stdout
+    assert int(n_port) >= 75 and bad.strip() == "[]", out.stdout
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
