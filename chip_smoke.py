@@ -7,21 +7,23 @@ Phases:
   1. the device: name, power limit; TF32 off for the references.
   2. build the CUDA kernels from ray_tpu_torch/ops/csrc (first use), one
      nvcc per source, all at once; print each kernel's registers and spills
-     (ptxas), fail if an sm90 kernel spills, and print the sm90 forward's
-     and backward's shared memory and CTAs per SM.
-  3. kernels: the causal-attention forwards (attention_fwd_sm90.cu for bf16
-     at D=64, causal_attention.cu's attn_fwd_kernel for D=128 and float32)
-     and fused backwards (attention_bwd_sm90.cu for bf16 at D=64,
-     causal_attention.cu's attn_bwd_kernel for D=128 and float32), through
-     impl="splash" and impl="flash", held against the plain PyTorch version
-     on the same inputs, at the main path's shape (strided q/k/v views of
-     one QKV tensor), at D=128, at a ragged S, with q, k, v as head-major
-     views, and with float32 inputs, each checked to have taken the forward
-     and the backward that the routing tables name; at the main path's
-     shape every forward and backward kernel is also launched directly on
-     the same inputs and checked; then all are timed at GPT-2 124M's shape
-     beside the plain version and
-     torch.nn.functional.scaled_dot_product_attention (timing only).
+     (ptxas), fail if an sm90 kernel spills, and print the shared memory
+     and CTAs per SM of the four sm90 kernels and of the wmma kernels at
+     bf16 D=128.
+  3. kernels: the causal-attention forwards and fused backwards (for bf16
+     attention_fwd_sm90.cu / attention_bwd_sm90.cu at D=64 and
+     attention_fwd_sm90_d128.cu / attention_bwd_sm90_d128.cu at D=128, for
+     float32 causal_attention.cu's attn_fwd_kernel / attn_bwd_kernel, the
+     "wmma" route), through impl="splash" and impl="flash", held against
+     the plain PyTorch version on the same inputs, at the main path's shape
+     (strided q/k/v views of one QKV tensor), at D=128, at a ragged S, with
+     q, k, v as head-major views at both head dims, and with float32
+     inputs, each checked to have taken the forward and the backward that
+     the routing tables name; the sm90_d128 and wmma kernels launched
+     directly on the same D=128 inputs, and at the main path's shape the
+     D=64 ones; then the D=64 kernels timed at GPT-2 124M's shape beside
+     the plain version and torch.nn.functional.scaled_dot_product_attention
+     (timing only).
   4. the slice: GPT-2 124M training through make_train_step.  (a) one step
      at batch 2 with the kernels and with the plain attention, same weights
      and batch; (b) 2 warm-up + 10 timed steps at batch 18 on one repeated
@@ -29,7 +31,7 @@ Phases:
      just after; (c) every forward and backward launch of (b) went through
      the sm90 kernels.  (d) the D=128 path: one forward and backward through
      causal_attention at Llama's head dim, counters reset before and read
-     after, which launches attn_fwd_kernel and attn_bwd_kernel.
+     after, all on the sm90_d128 kernels.
   5. (e) the product path: ray_tpu_torch.init starts a cluster (head,
      zygote, workers: separate processes) that must count one GPU; a
      TorchTrainer fit runs the same 2 + 10 steps of (b) from the same
@@ -45,17 +47,19 @@ Phases:
      below it) behind.
   6. (f) Llama-2-7B (LlamaConfig.llama2_7b: full width and depth, bf16
      weights drawn from seed 0, max_seq_len 256), direct.  First the
-     head-dim-128 kernels (causal_attention.cu's attn_fwd_kernel and
-     attn_bwd_kernel, the "wmma" route) at its prefill shape B=1 S=256 H=32
-     D=128: launched directly and checked against the plain version, then
-     timed beside it and SDPA.  Then the model on one S=256 prompt: apply
+     head-dim-128 kernels (the sm90_d128 route, and the wmma kernels as the
+     in-run yardstick) at its prefill shape B=1 S=256 H=32 D=128 and at
+     B=1 S=2048 (LlamaConfig's default max_seq_len): the route checked,
+     both launched directly and checked against the plain version, then
+     timed beside it and SDPA; the sm90_d128 kernels must beat the wmma
+     ones.  Then the model on one S=256 prompt: apply
      with the kernels, apply with the plain attention in bf16 and in f32
      (the reference), and the prefill path (the teacher-forced loop of
      decode_step) in bf16 and f32; apply's launches (32 forwards, all
-     wmma) read with the counters reset just before.  loss forward and
+     sm90_d128) read with the counters reset just before.  loss forward and
      backward at full width with 2 layers on 257 tokens (so at S=256, the
      shape checked above), counters reset before and read after: 4
-     forwards (remat) and 2 backwards, all wmma, and loss and grad norm
+     forwards (remat) and 2 backwards, all sm90_d128, and loss and grad norm
      against the plain attention.  ShardedLLM.generate at B=1 and B=8 (P=1,
      32 new tokens): ms per step against the weight-bytes bound, decode ms
      per token after the first, peak memory; a torch.profiler run of the
@@ -74,7 +78,10 @@ Phases:
      of the cluster is left after serve.shutdown() and shutdown().  Every
      cluster call carries a timeout.
 Each phase prints its wall seconds.  Then one JSON line on the kernels (the
-wmma kernels' launches, error and times from (f)) and, last,
+D=64 kernels' launches from (b), error and times from phase 3; the
+sm90_d128 kernels' launches from (f), error and times at the prefill shape
+with the long shape's beside; the wmma kernels' launches from the float32
+checks, their D=128 error and times from direct launches) and, last,
 {"ok": true, "device": ...}.
 Any failed check makes the script exit 1 without that last line, and an
 exception in any phase ends it with a traceback.  It exits 2 when no CUDA
@@ -125,10 +132,13 @@ CHECK_SHAPES = [  # B, S, H, D
 F32_CHECK_SHAPES = [(1, 300, 4, 64), (1, 200, 2, 128)]
 D128_PATH = (1, 1024, 24, 128)  # B, S, H, D of path (d)
 TPU_KERNELS = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
-SOURCES = ("causal_attention", "attention_fwd_sm90", "attention_bwd_sm90")  # under ray_tpu_torch/ops/csrc/
-FWD_COUNTERS = {"sm90": "causal_attention_fwd_sm90", "wmma": "causal_attention_fwd_wmma"}
-BWD_COUNTERS = {"sm90": "causal_attention_bwd_sm90", "wmma": "causal_attention_bwd_wmma"}
+SOURCES = ("causal_attention", "attention_fwd_sm90", "attention_bwd_sm90",  # under ray_tpu_torch/ops/csrc/
+           "attention_fwd_sm90_d128", "attention_bwd_sm90_d128")
+ROUTES = ("sm90", "sm90_d128", "wmma")
+FWD_COUNTERS = {r: f"causal_attention_fwd_{r}" for r in ROUTES}
+BWD_COUNTERS = {r: f"causal_attention_bwd_{r}" for r in ROUTES}
 COUNTERS = (*FWD_COUNTERS.values(), *BWD_COUNTERS.values())
+D128_ROUTES = ("sm90_d128", "wmma")  # the head-dim-128 kernel and its in-run yardstick, launched directly
 
 FAILED = []
 
@@ -226,45 +236,57 @@ def check_route(att, taken, dtype, D, what):
           f"launches {taken}, tables name {sorted(want)}")
 
 
+def check_errors(what, ek, ep):
+    """The kernel rule on the errors of one kernel path: out, dq, dk, dv
+    within twice the plain bf16 version's error plus 1e-3, lse within 1e-4."""
+    for n in ("out", "dq", "dk", "dv"):
+        tol = 2 * ep[n] + 1e-3
+        check(f"bf16 {n} {what}", ek[n] <= tol, f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
+    check(f"bf16 lse {what}", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
+
+
+def check_direct(direct_err, ep, what):
+    """The kernel rule on each kernel launched directly; its largest error."""
+    for c, errs in direct_err.items():
+        for n, e in errs.items():
+            tol = 2 * ep[n] + 1e-3
+            check(f"bf16 {n} {what} {c}", e <= tol, f"kernel {e:.3e} tol {tol:.3e}")
+    return {c: max(errs.values()) for c, errs in direct_err.items()}
+
+
 def kernel_phase(att):
+    """The checks of phase 3; returns the errors of the D=64 kernels launched
+    directly at the main path's shape, and the launches the float32 checks
+    made (the wmma kernels' route), read with the counters reset before."""
     for i, (B, S, H, D) in enumerate(CHECK_SHAPES):
         for impl in ("splash", "flash"):
             ek, ep, taken, _ = attention_errors(att, B, S, H, D, torch.bfloat16, impl, seed=10 + i)
             check_route(att, taken, torch.bfloat16, D, f"bf16 B={B} S={S} H={H} D={D} impl={impl}")
-            for n in ("out", "dq", "dk", "dv"):
-                tol = 2 * ep[n] + 1e-3
-                check(f"bf16 {n} B={B} S={S} H={H} D={D} impl={impl}", ek[n] <= tol,
-                      f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
-            check(f"bf16 lse B={B} S={S} H={H} D={D} impl={impl}", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
+            check_errors(f"B={B} S={S} H={H} D={D} impl={impl}", ek, ep)
     # q, k, v as head-major views: the kernels take any batch/seq/head strides
-    B, S, H, D = CHECK_SHAPES[2]
-    ek, ep, taken, _ = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=4, head_major=True)
-    check_route(att, taken, torch.bfloat16, D, f"bf16 head-major B={B} S={S} H={H} D={D}")
-    for n in ("out", "dq", "dk", "dv"):
-        tol = 2 * ep[n] + 1e-3
-        check(f"bf16 head-major {n} B={B} S={S} H={H} D={D}", ek[n] <= tol,
-              f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
-    check(f"bf16 head-major lse B={B} S={S} H={H} D={D}", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
+    for B, S, H, D in (CHECK_SHAPES[2], CHECK_SHAPES[3]):
+        ek, ep, taken, _ = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=4, head_major=True)
+        check_route(att, taken, torch.bfloat16, D, f"bf16 head-major B={B} S={S} H={H} D={D}")
+        check_errors(f"head-major B={B} S={S} H={H} D={D}", ek, ep)
+    # head dim 128: the sm90_d128 kernels and the wmma yardstick launched
+    # directly on the same inputs
+    B, S, H, D = CHECK_SHAPES[1]
+    _, ep, _, direct_err = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=12, direct=True,
+                                            routes=D128_ROUTES)
+    check_direct(direct_err, ep, f"B={B} S={S} H={H} D={D}")
     # the main path's exact shape; these are the errors reported per kernel
     B, S, H, D = SLICE_ATTN
     ek, ep, taken, direct_err = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=1, direct=True)
     check_route(att, taken, torch.bfloat16, D, f"bf16 B={B} S={S} H={H} D={D} impl=auto")
-    for c, errs in direct_err.items():  # every kernel launched directly on the same inputs
-        for n, e in errs.items():
-            tol = 2 * ep[n] + 1e-3
-            check(f"bf16 {n} B={B} S={S} H={H} D={D} {c}", e <= tol, f"kernel {e:.3e} tol {tol:.3e}")
-    for n in ("out", "dq", "dk", "dv"):
-        tol = 2 * ep[n] + 1e-3
-        check(f"bf16 {n} B={B} S={S} H={H} D={D} impl=auto", ek[n] <= tol,
-              f"kernel {ek[n]:.3e} plain-bf16 {ep[n]:.3e} tol {tol:.3e}")
-    check(f"bf16 lse B={B} S={S} H={H} D={D} impl=auto", ek["lse"] <= 1e-4, f"{ek['lse']:.3e} tol 1e-4")
-    max_err = {c: max(errs.values()) for c, errs in direct_err.items()}
+    max_err = check_direct(direct_err, ep, f"B={B} S={S} H={H} D={D}")
+    check_errors(f"B={B} S={S} H={H} D={D} impl=auto", ek, ep)
+    att.reset_launch_counts()
     for B, S, H, D in F32_CHECK_SHAPES:
         ek, _, taken, _ = attention_errors(att, B, S, H, D, torch.float32, "splash", seed=5)
         check_route(att, taken, torch.float32, D, f"f32 B={B} S={S} H={H} D={D}")
         for n, e in ek.items():
             check(f"f32 {n} B={B} S={S} H={H} D={D}", e <= 1e-4, f"{e:.3e} tol 1e-4")
-    return max_err
+    return max_err, dict(att.LAUNCHES)
 
 
 def attention_bounds(B, S, H, D, elem=2):
@@ -580,16 +602,16 @@ def d128_phase(att):
     out.backward(torch.ones_like(out))
     torch.cuda.synchronize()
     launches = dict(att.LAUNCHES)
-    check("path (d) D=128 launches", launches["causal_attention_fwd_wmma"] == 1
-          and launches["causal_attention_fwd_sm90"] == 0 and launches["causal_attention_bwd_wmma"] == 1
-          and launches["causal_attention_bwd_sm90"] == 0 and launches["causal_attention_bwd"] == 1,
-          f"{launches}")
+    want = {**dict.fromkeys(COUNTERS, 0), "causal_attention_fwd_sm90_d128": 1, "causal_attention_bwd_sm90_d128": 1}
+    check("path (d) D=128 launches on the sm90_d128 kernels", {c: launches[c] for c in COUNTERS} == want
+          and launches["causal_attention_fwd"] == 1 and launches["causal_attention_bwd"] == 1, f"{launches}")
     return launches
 
 
 LLAMA = "llama2_7b"  # LlamaConfig preset of (f) and (g): full width and depth, bf16 weights from seed 0
 LLAMA_SEQ, LLAMA_NEW, LLAMA_BATCH = 256, 32, 8  # bench_serve.py's MAX_SEQ, NEW_TOKENS, MAX_BATCH
 LLAMA_ATTN = (1, LLAMA_SEQ, 32, 128)  # B, S, H, D of Llama-2-7B's prefill attention
+LLAMA_LONG_ATTN = (1, 2048, 32, 128)  # at LlamaConfig's default max_seq_len: training and long prefill
 LLAMA_PROMPT = 7  # (f)'s B=1 prompt and (g)'s first request; LLAMA_PROMPT + b is row b at B=8
 SERVE_LOADS = (4, 16, 32)  # offered concurrency, 4 x concurrency requests each (bench_serve.py)
 K4_OPS = ("aten::einsum", "aten::softmax", "aten::masked_fill")  # the decode attention over the cache
@@ -640,9 +662,9 @@ def llama_loss_check(att, cfg, device, tokens):
     check("llama (f) loss kernels vs plain", abs(lk - lp) <= 1e-3 * abs(lp), f"{lk:.6f} vs {lp:.6f}")
     check("llama (f) grad_norm kernels vs plain", abs(gk - gp) <= 1e-2 * abs(gp), f"{gk:.6f} vs {gp:.6f}")
     L = 2
-    check("llama (f) loss launches on the wmma kernels (remat: 2 forwards per layer)",
-          launches["causal_attention_fwd_wmma"] == 2 * L and launches["causal_attention_fwd"] == 2 * L
-          and launches["causal_attention_bwd_wmma"] == L and launches["causal_attention_bwd"] == L, f"{launches}")
+    check("llama (f) loss launches on the sm90_d128 kernels (remat: 2 forwards per layer)",
+          launches["causal_attention_fwd_sm90_d128"] == 2 * L and launches["causal_attention_fwd"] == 2 * L
+          and launches["causal_attention_bwd_sm90_d128"] == L and launches["causal_attention_bwd"] == L, f"{launches}")
     del model
     return launches
 
@@ -717,7 +739,7 @@ def llama_phase(att, card, model=LLAMA, device="cuda"):
           f"{e_pre:.3e} tol {2 * e_plain_last + 1e-3:.3e}")
     check("llama (f) prefill loop (f32) vs apply (f32), last position", e_pre32 <= 2e-3 + 2e-3 * scale,
           f"{e_pre32:.3e} tol {2e-3 + 2e-3 * scale:.3e}")
-    check("llama (f) apply launches on the wmma forward", apply_launches["causal_attention_fwd_wmma"] == cfg.n_layers
+    check("llama (f) apply launches on the sm90_d128 forward", apply_launches["causal_attention_fwd_sm90_d128"] == cfg.n_layers
           and apply_launches["causal_attention_fwd"] == cfg.n_layers and apply_launches["causal_attention_bwd"] == 0,
           f"{apply_launches}")
     del ref, plain, kern
@@ -763,19 +785,28 @@ def llama_phase(att, card, model=LLAMA, device="cuda"):
 
 
 def llama_kernel_phase(att):
-    """The head-dim-128 (wmma) kernels at Llama-2-7B's prefill shape:
-    checked launched directly against the float32 plain version, and timed
-    beside the plain version and SDPA."""
-    B, S, H, D = LLAMA_ATTN
-    ek, ep, taken, direct_err = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=6, direct=True,
-                                                 routes=("wmma",))
-    check_route(att, taken, torch.bfloat16, D, f"bf16 B={B} S={S} H={H} D={D} impl=auto (Llama prefill)")
-    for c, errs in direct_err.items():
-        for n, e in errs.items():
-            tol = 2 * ep[n] + 1e-3
-            check(f"bf16 {n} B={B} S={S} H={H} D={D} {c}", e <= tol, f"kernel {e:.3e} tol {tol:.3e}")
-    max_err_ = {c: max(errs.values()) for c, errs in direct_err.items()}
-    return max_err_, *timing_phase(att, LLAMA_ATTN, routes=("wmma",))
+    """The head-dim-128 kernels (sm90_d128, and the wmma yardstick) at
+    Llama-2-7B's prefill shape and at its long shape: launched directly on
+    the same inputs and checked against the float32 plain version, the
+    route through causal_attention checked too, then timed beside the plain
+    version and SDPA; the sm90_d128 kernels must beat the wmma ones.
+    {shape: (max_err, times, plain, library, bounds)}."""
+    out = {}
+    for shape, seed in ((LLAMA_ATTN, 6), (LLAMA_LONG_ATTN, 7)):
+        B, S, H, D = shape
+        what = f"B={B} S={S} H={H} D={D}"
+        ek, ep, taken, direct_err = attention_errors(att, B, S, H, D, torch.bfloat16, "auto", seed=seed, direct=True,
+                                                     routes=D128_ROUTES)
+        check_route(att, taken, torch.bfloat16, D, f"bf16 {what} impl=auto (Llama)")
+        check_errors(f"{what} impl=auto (Llama)", ek, ep)
+        max_err = check_direct(direct_err, ep, what)
+        times, plain, library, bounds = timing_phase(att, shape, routes=D128_ROUTES)
+        for counters in (FWD_COUNTERS, BWD_COUNTERS):
+            new, old = counters["sm90_d128"], counters["wmma"]
+            check(f"{new} faster than {old} at {what}", times[new] < times[old],
+                  f"{times[new]:.4f} ms vs {times[old]:.4f} ms")
+        out[shape] = (max_err, times, plain, library, bounds)
+    return out
 
 
 def llama_process_libs(pid):
@@ -910,12 +941,20 @@ def build_phase(att):
                 check(f"ptxas: {kernel.group(1) if kernel else entry} spills nothing",
                       bool(spill) and spill.groups() == ("0", "0"),
                       spill.group(0) if spill else "no spill line in the report")
-    for name, threads in (("attn_fwd_sm90", 256), ("attn_bwd_sm90", 128)):
+    for name, threads in (("attn_fwd_sm90", 256), ("attn_bwd_sm90", 128), ("attn_fwd_sm90_d128", 288),
+                          ("attn_bwd_sm90_d128", 256)):
         smem, ctas = ctypes.c_int(), ctypes.c_int()
         lib = att._kernels(name.replace("attn", "attention"))
         err = getattr(lib, f"rtt_{name}_occupancy")(ctypes.byref(smem), ctypes.byref(ctas))
         check(f"{name} occupancy query", err == 0, f"error {err}")
         print(f"occupancy {name}_kernel: {smem.value} bytes of dynamic shared memory, "
+              f"{ctas.value} CTAs (of {threads} threads) per SM", flush=True)
+    for backward, name, threads in ((0, "attn_fwd_kernel", 128), (1, "attn_bwd_kernel", 256)):
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        err = att._kernels("causal_attention").rtt_attn_occupancy(0, 128, backward, ctypes.byref(smem),
+                                                                  ctypes.byref(ctas))
+        check(f"{name}<bf16, 128> occupancy query", err == 0, f"error {err}")
+        print(f"occupancy {name}<bf16, 128> (wmma): {smem.value} bytes of dynamic shared memory, "
               f"{ctas.value} CTAs (of {threads} threads) per SM", flush=True)
 
 
@@ -943,7 +982,7 @@ def main() -> int:
 
     # 3. kernels
     with timed("3 kernels"):
-        max_err = kernel_phase(att)
+        max_err, f32_launches = kernel_phase(att)
         times, plain, library, bounds = timing_phase(att)
 
     # 4. the slice, then path (d)
@@ -955,41 +994,58 @@ def main() -> int:
     with timed("5 (e) trainer"):
         trainer_phase(kind, smi, direct)
 
-    # 6. (f) Llama-2-7B direct: the head-dim-128 kernels at its prefill shape,
-    # then the model; the wmma kernels' line reads (f)'s launches and shape
+    # 6. (f) Llama-2-7B direct: the head-dim-128 kernels at its prefill and
+    # long shapes, then the model.  The sm90_d128 kernels' line reads (f)'s
+    # launches and the prefill shape's numbers; the wmma kernels' line the
+    # float32 checks' launches (their route) and their direct launches at
+    # the prefill shape; both carry the long shape's numbers beside.
     with timed("6 (f) llama direct"):
-        wmma = llama_kernel_phase(att)
+        d128 = llama_kernel_phase(att)
         llama_launches, _, direct_tokens = llama_phase(att, smi)
-    for name in ("causal_attention_fwd_wmma", "causal_attention_bwd_wmma"):
-        launches[name] = llama_launches[name]
-        for table, value in zip((max_err, times, plain, library, bounds), wmma):
-            table[name] = value[name]
+    long = {}
+    for route, source in (("sm90_d128", llama_launches), ("wmma", f32_launches)):
+        for name in (FWD_COUNTERS[route], BWD_COUNTERS[route]):
+            launches[name] = source[name]
+            for table, value in zip((max_err, times, plain, library, bounds), d128[LLAMA_ATTN]):
+                table[name] = value[name]
+            l_err, l_times, l_plain, l_library, l_bounds = d128[LLAMA_LONG_ATTN]
+            long[name] = {"shape": list(LLAMA_LONG_ATTN), "max_abs_err": l_err[name], "ms": l_times[name],
+                          "plain_ms": l_plain[name], "bound_ms": l_bounds[name][0], "bound_by": l_bounds[name][1],
+                          "library_ms": l_library[name]}
 
     # 7. (g) the product path: serve.run(llm_deployment(...)) on a GPU replica
     with timed("7 (g) serve"):
         serve_phase(kind, smi, direct_tokens)
 
-    return finish(kernel_report(launches, max_err, times, plain, library, bounds), kind)
+    return finish(kernel_report(launches, max_err, times, plain, library, bounds, long), kind)
 
 
-def kernel_report(launches, max_err, times, plain, library, bounds):
+def kernel_report(launches, max_err, times, plain, library, bounds, long):
+    d128 = "launches from Llama-2-7B's apply and loss (phase (f)); error and times at its prefill shape B=1 S=256 H=32 D=128"
     info = {  # name -> (source, replaces, status)
         "causal_attention_fwd_sm90": (
             "ray_tpu_torch/ops/csrc/attention_fwd_sm90.cu", f"{TPU_KERNELS}:1137",  # _splash_attention_forward
             "ported (wgmma, TMA); bf16 at D=64, the GPT-2 path's forward (slice (b)); "
             "also serves impl='flash' (flash_attention.py:758)"),
+        "causal_attention_fwd_sm90_d128": (
+            "ray_tpu_torch/ops/csrc/attention_fwd_sm90_d128.cu", f"{TPU_KERNELS}:1137",
+            f"ported (wgmma, TMA in 64-column halves, producer warp); bf16 at D=128, Llama's forward; {d128}"),
         "causal_attention_fwd_wmma": (
             "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:1137",
-            "ported (WMMA); bf16 at D=128 and float32; launches, error and times from Llama-2-7B's "
-            "apply and loss (phase (f), B=1 S=256 H=32 D=128)"),
+            "ported (WMMA); float32 at D=64 and 128 (launches from the float32 checks, phase 3), and the "
+            "in-run yardstick of the sm90_d128 forward: error and times from direct launches at B=1 S=256 H=32 D=128"),
         "causal_attention_bwd_sm90": (
             "ray_tpu_torch/ops/csrc/attention_bwd_sm90.cu", f"{TPU_KERNELS}:2196",  # _splash_attention_bwd_dkv, fused
             "ported (wgmma, TMA, bulk reduce-add of dq); bf16 at D=64, the GPT-2 path's backward (slice (b)); "
             "also serves impl='flash' (flash_attention.py:1121/1456)"),
+        "causal_attention_bwd_sm90_d128": (
+            "ray_tpu_torch/ops/csrc/attention_bwd_sm90_d128.cu", f"{TPU_KERNELS}:2196",
+            "ported (wgmma, TMA in 64-column halves, two warpgroups of 64 keys, bulk reduce-add of dq); "
+            f"bf16 at D=128, Llama's backward; {d128}"),
         "causal_attention_bwd_wmma": (
             "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:2196",
-            "ported (WMMA); bf16 at D=128 and float32; launches, error and times from Llama-2-7B's "
-            "loss backward (phase (f), B=1 S=256 H=32 D=128)"),
+            "ported (WMMA); float32 at D=64 and 128 (launches from the float32 checks, phase 3), and the "
+            "in-run yardstick of the sm90_d128 backward: error and times from direct launches at B=1 S=256 H=32 D=128"),
     }
     return [
         {
@@ -1005,6 +1061,7 @@ def kernel_report(launches, max_err, times, plain, library, bounds):
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
             "library_ms": library[name],
+            **({"long": long[name]} if name in long else {}),
         }
         for name, (source, replaces, status) in info.items()
     ]

@@ -4,11 +4,13 @@ the CPU.
 Port of `ray_tpu/ops/attention.py`.  There, `impl="auto"` reaches the TPU
 splash-attention kernels (forward, and a fused backward giving dq, dk, dv)
 and `impl="flash"` the TPU flash-attention kernels.  Here every one of those
-names launches the CUDA kernels on a CUDA tensor: for bfloat16 at head dim
-64 the forward of `csrc/attention_fwd_sm90.cu` and the fused backward of
-`csrc/attention_bwd_sm90.cu` (wgmma, TMA), for the other dtypes and head
-dims the forward and fused backward of `csrc/causal_attention.cu` (WMMA),
-chosen by the tables `_FWD_ROUTES` and `_BWD_ROUTES`.  Only
+names launches the CUDA kernels on a CUDA tensor: for bfloat16 the forward
+of `csrc/attention_fwd_sm90.cu` and the fused backward of
+`csrc/attention_bwd_sm90.cu` (wgmma, TMA) at head dim 64, and their head-dim
+128 forms `csrc/attention_fwd_sm90_d128.cu` and
+`csrc/attention_bwd_sm90_d128.cu`; for float32 the forward and fused
+backward of `csrc/causal_attention.cu` (WMMA); chosen by the tables
+`_FWD_ROUTES` and `_BWD_ROUTES`.  Only
 `impl="xla"` names the plain version, the port of `_xla_causal_attention`.
 On a CPU tensor every impl runs the plain version.
 
@@ -32,32 +34,35 @@ KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # The forward kernel for each (dtype, head_dim), chosen by type and shape
-# alone: "sm90" is attention_fwd_sm90.cu, "wmma" causal_attention.cu's
-# attn_fwd_kernel.
+# alone: "sm90" is attention_fwd_sm90.cu, "sm90_d128" attention_fwd_sm90_d128.cu,
+# "wmma" causal_attention.cu's attn_fwd_kernel.
 _FWD_ROUTES = {
     (torch.bfloat16, 64): "sm90",
-    (torch.bfloat16, 128): "wmma",
+    (torch.bfloat16, 128): "sm90_d128",
     (torch.float32, 64): "wmma",
     (torch.float32, 128): "wmma",
 }
 # route -> (library under csrc/, entry point, launch counter)
 _FWD_KERNELS = {
     "sm90": ("attention_fwd_sm90", "rtt_attn_fwd_sm90", "causal_attention_fwd_sm90"),
+    "sm90_d128": ("attention_fwd_sm90_d128", "rtt_attn_fwd_sm90_d128", "causal_attention_fwd_sm90_d128"),
     "wmma": ("causal_attention", "rtt_attn_fwd", "causal_attention_fwd_wmma"),
 }
-# The same for the fused backward: "sm90" is attention_bwd_sm90.cu, "wmma"
-# causal_attention.cu's attn_bwd_kernel.
+# The same for the fused backward: "sm90" is attention_bwd_sm90.cu,
+# "sm90_d128" attention_bwd_sm90_d128.cu, "wmma" causal_attention.cu's
+# attn_bwd_kernel.
 _BWD_ROUTES = {
     (torch.bfloat16, 64): "sm90",
-    (torch.bfloat16, 128): "wmma",
+    (torch.bfloat16, 128): "sm90_d128",
     (torch.float32, 64): "wmma",
     (torch.float32, 128): "wmma",
 }
 _BWD_KERNELS = {
     "sm90": ("attention_bwd_sm90", "rtt_attn_bwd_sm90", "causal_attention_bwd_sm90"),
+    "sm90_d128": ("attention_bwd_sm90_d128", "rtt_attn_bwd_sm90_d128", "causal_attention_bwd_sm90_d128"),
     "wmma": ("causal_attention", "rtt_attn_bwd", "causal_attention_bwd_wmma"),
 }
-# the sm90 backward's q tile: its f32 dq accumulator holds whole tiles
+# the sm90 backwards' q tile: their f32 dq accumulator holds whole tiles
 BWD_SM90_TILE = 64
 
 # Launches of each kernel since the last reset_launch_counts(): a run reads
@@ -67,9 +72,11 @@ BWD_SM90_TILE = 64
 LAUNCHES = {
     "causal_attention_fwd": 0,
     "causal_attention_fwd_sm90": 0,
+    "causal_attention_fwd_sm90_d128": 0,
     "causal_attention_fwd_wmma": 0,
     "causal_attention_bwd": 0,
     "causal_attention_bwd_sm90": 0,
+    "causal_attention_bwd_sm90_d128": 0,
     "causal_attention_bwd_wmma": 0,
 }
 
@@ -100,16 +107,23 @@ def plain_causal_attention(
 
 _P, _I, _STRIDES = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 _FWD_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _STRIDES, _P]
+_SM90_BWD_ARGTYPES = [_I, _I, *[_P] * 11, _I, _I, _I, _STRIDES, _P]
 # library -> {entry point: argtypes}; every pointer and the stream are c_void_p
 _ENTRY_POINTS = {
     "causal_attention": {
         "rtt_attn_fwd": _FWD_ARGTYPES,
         "rtt_attn_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _STRIDES, _P],
+        "rtt_attn_occupancy": [_I, _I, _I, _P, _P],
     },
     "attention_fwd_sm90": {"rtt_attn_fwd_sm90": _FWD_ARGTYPES, "rtt_attn_fwd_sm90_occupancy": [_P, _P]},
-    "attention_bwd_sm90": {
-        "rtt_attn_bwd_sm90": [_I, _I, *[_P] * 11, _I, _I, _I, _STRIDES, _P],
-        "rtt_attn_bwd_sm90_occupancy": [_P, _P],
+    "attention_bwd_sm90": {"rtt_attn_bwd_sm90": _SM90_BWD_ARGTYPES, "rtt_attn_bwd_sm90_occupancy": [_P, _P]},
+    "attention_fwd_sm90_d128": {
+        "rtt_attn_fwd_sm90_d128": _FWD_ARGTYPES,
+        "rtt_attn_fwd_sm90_d128_occupancy": [_P, _P],
+    },
+    "attention_bwd_sm90_d128": {
+        "rtt_attn_bwd_sm90_d128": _SM90_BWD_ARGTYPES,
+        "rtt_attn_bwd_sm90_d128_occupancy": [_P, _P],
     },
 }
 
@@ -188,10 +202,10 @@ def _launch_bwd(route: str, q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Te
     dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     strides, stream = _qkv_strides(q, k, v), _stream(q.device)
-    if route == "sm90":
-        # the entry point fills di, zeroes the f32 dq accumulator and casts
+    if route != "wmma":
+        # the sm90 entry points fill di, zero the f32 dq accumulator and cast
         # it to dq; the accumulator holds whole 64-row tiles (rows padded to
-        # a multiple of 64), each a contiguous 16 KB block in 8-column blocks
+        # a multiple of 64), each a contiguous block of D/8 8-column blocks
         di = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         s_pad = -(-S // BWD_SM90_TILE) * BWD_SM90_TILE
         dq_acc = torch.empty((B, H, s_pad, D), dtype=torch.float32, device=q.device)

@@ -12,8 +12,9 @@
 // (splash_attention_kernel.py:2285); P = exp(S - lse) is recomputed, never
 // stored; dq, dk, dv come back in q's dtype.  q, k, v are [B, S, H, 64]
 // bf16 with any batch/seq/head strides (multiples of 16 bytes); o, dO and
-// the outputs are contiguous [B, S, H, 64] bf16.  float32 inputs and head
-// dim 128 go to attn_bwd_kernel in causal_attention.cu.
+// the outputs are contiguous [B, S, H, 64] bf16.  bf16 at head dim 128 goes
+// to attention_bwd_sm90_d128.cu, float32 inputs to attn_bwd_kernel in
+// causal_attention.cu.
 //
 // What bounds it on an H100.  At GPT-2 124M's shape (B=18, H=12, S=1024,
 // D=64) the backward does five products over the causal pairs,
@@ -96,31 +97,6 @@ struct Smem {  // byte offsets from a 1024-byte aligned base
   static constexpr int bar = stats + 2 * 2 * BM * 4;  // mbarriers: kv, full[STAGES]
   static constexpr int bytes = bar + 8 * (1 + STAGES) + 1024;  // + alignment slack
 };
-
-// ------------------------------------------------------------ bulk copies
-
-// dst[0:bytes] += src[0:bytes] as f32, shared to global, in the issuing
-// thread's bulk group.
-__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;" ::"l"(dst), "r"(src),
-               "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// Until at most N of this thread's bulk groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-// Orders this thread's generic-proxy writes to shared memory before later
-// async-proxy reads of it (wgmma operands, bulk copies).
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
 
 // The accumulator as A fragments: k16 chunk kk is n8 chunks 2kk and 2kk+1,
 // rounded to bf16 pairs.  a[kk][2t] holds the thread's low row of n8 chunk
@@ -334,53 +310,6 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");  // the last reduces are done
 }
 
-// di[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in f32, from the bf16
-// rows: 8 threads per row of 64, 16 bytes each.
-__global__ void attn_bwd_sm90_pre_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                         float* __restrict__ di, int H, int S, long long rows) {
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long n = g / 8;  // row of [B, S, H]
-  const int part = static_cast<int>(g % 8);
-  float sum = 0.f;
-  if (n < rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + n * D + part * 8);
-    const uint4 c = *reinterpret_cast<const uint4*>(dout + n * D + part * 8);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(c2[i]);
-      sum = fmaf(x.x, y.x, sum);
-      sum = fmaf(x.y, y.y, sum);
-    }
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  if (n < rows && part == 0) {
-    const long long b = n / (static_cast<long long>(S) * H);
-    const int s = static_cast<int>((n / H) % S), h = static_cast<int>(n % H);
-    di[(b * H + h) * S + s] = sum;
-  }
-}
-
-// dq[b, s, h, :] = bf16(the accumulator's row), 8 threads per row, one
-// 8-column block (32 bytes in, 16 bytes out) each.
-__global__ void attn_bwd_sm90_post_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq, int H, int S,
-                                          long long rows) {
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long n = g / 8;
-  const int cb = static_cast<int>(g % 8);
-  if (n >= rows) return;
-  const long long b = n / (static_cast<long long>(S) * H);
-  const int s = static_cast<int>((n / H) % S), h = static_cast<int>(n % H);
-  const int n_q = (S + BM - 1) / BM;
-  const float* src = dq_acc + (((b * H + h) * n_q + s / BM) * 8 + cb) * (BM * 8) + (s % BM) * 8;
-  const float4 x0 = *reinterpret_cast<const float4*>(src), x1 = *reinterpret_cast<const float4*>(src + 4);
-  const uint4 val = {pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w), pack_bf16(x1.x, x1.y), pack_bf16(x1.z, x1.w)};
-  *reinterpret_cast<uint4*>(dq + n * D + cb * 8) = val;
-}
-
 // ------------------------------------------------------------------- host
 
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse, float* di,
@@ -400,8 +329,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
   cudaError_t ce = cudaMemsetAsync(dq_acc, 0, static_cast<size_t>(B) * H * n_q * BM * D * sizeof(float), stream);
   if (ce != cudaSuccess) return ce;
-  attn_bwd_sm90_pre_kernel<<<row_blocks, 256, 0, stream>>>(static_cast<const bf16*>(o),
-                                                           static_cast<const bf16*>(dout), di, H, S, rows);
+  attn_bwd_sm90_pre_kernel<D><<<row_blocks, 256, 0, stream>>>(static_cast<const bf16*>(o),
+                                                              static_cast<const bf16*>(dout), di, H, S, rows);
   if ((ce = cudaGetLastError()) != cudaSuccess) return ce;
   auto kern = attn_bwd_sm90_kernel;
   ce = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
@@ -409,7 +338,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   kern<<<dim3(H, B, n_q), NTHREADS, L::bytes, stream>>>(tq, tk, tv, tdo, lse, di, dq_acc, static_cast<bf16*>(dk),
                                                         static_cast<bf16*>(dv), H, S);
   if ((ce = cudaGetLastError()) != cudaSuccess) return ce;
-  attn_bwd_sm90_post_kernel<<<row_blocks, 256, 0, stream>>>(dq_acc, static_cast<bf16*>(dq), H, S, rows);
+  attn_bwd_sm90_post_kernel<D, BM><<<row_blocks, 256, 0, stream>>>(dq_acc, static_cast<bf16*>(dq), H, S, rows);
   return cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@
 // scores.  q arrives pre-scaled by sm_scale (splash's convention).  q, k, v
 // are [B, S, H, 64] bf16 with any batch/seq/head strides (multiples of 16
 // bytes); o is contiguous [B, S, H, 64] bf16 and lse contiguous [B, H, S]
-// f32.  float32 inputs and head dim 128 go to attn_fwd_kernel in
-// causal_attention.cu.
+// f32.  bf16 at head dim 128 goes to attention_fwd_sm90_d128.cu, float32
+// inputs to attn_fwd_kernel in causal_attention.cu.
 //
 // What bounds it on an H100.  At GPT-2 124M's shape (B=18, H=12, S=1024,
 // D=64) the forward does 4*D*B*H*S(S+1)/2 = 2.9e10 FLOP over the causal

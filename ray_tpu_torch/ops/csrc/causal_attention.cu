@@ -9,8 +9,11 @@
 // They also serve causal_attention(impl="flash"), whose TPU kernels
 // (flash_attention.py) compute the same function.  For bfloat16 at head
 // dim 64 the forward is attention_fwd_sm90.cu (wgmma, TMA), chosen by
-// ops/attention.py's routing table; attn_fwd_kernel takes head dim 128 and
-// float32 inputs.
+// ops/attention.py's routing table, and so is the backward
+// (attention_bwd_sm90.cu); at head dim 128 the bf16 forward and backward
+// are attention_fwd_sm90_d128.cu and attention_bwd_sm90_d128.cu.  These
+// kernels take float32 inputs on the model path, and stay built as the
+// yardstick the sm90 kernels are timed against.
 //
 // Convention (splash's): q arrives pre-scaled by sm_scale, so the kernels
 // compute softmax(q k^T) v with no scale inside, and the residual lse is the
@@ -426,6 +429,33 @@ extern "C" int rtt_attn_bwd(int dtype, int D, const void* q, const void* k, cons
     return launch_bwd<float, 64>(q, k, v, dout, lse, di, dq_acc, dk, dv, B, H, S, st, s);
   if (dtype == 1 && D == 128)
     return launch_bwd<float, 128>(q, k, v, dout, lse, di, dq_acc, dk, dv, B, H, S, st, s);
+  return cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <typename T, int D>
+int occupancy(int backward, int* smem_bytes, int* ctas_per_sm) {
+  const int bytes = backward ? BwdLayout<T, D>::bytes : FwdLayout<T, D>::bytes;
+  const int threads = (backward ? kBwdWarps : kFwdWarps) * 32;
+  const void* kern = backward ? reinterpret_cast<const void*>(attn_bwd_kernel<T, D, kBwdWarps>)
+                              : reinterpret_cast<const void*>(attn_fwd_kernel<T, D, kFwdWarps>);
+  *smem_bytes = bytes;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, threads, bytes);
+}
+
+}  // namespace
+
+// The dynamic shared memory in bytes of the forward (backward = 0) or
+// backward kernel for (dtype, D), and how many of its CTAs fit on one SM
+// (registers and shared memory together), for the build report.
+extern "C" int rtt_attn_occupancy(int dtype, int D, int backward, int* smem_bytes, int* ctas_per_sm) {
+  if (dtype == 0 && D == 64) return occupancy<bf16, 64>(backward, smem_bytes, ctas_per_sm);
+  if (dtype == 0 && D == 128) return occupancy<bf16, 128>(backward, smem_bytes, ctas_per_sm);
+  if (dtype == 1 && D == 64) return occupancy<float, 64>(backward, smem_bytes, ctas_per_sm);
+  if (dtype == 1 && D == 128) return occupancy<float, 128>(backward, smem_bytes, ctas_per_sm);
   return cudaErrorInvalidValue;
 }
 

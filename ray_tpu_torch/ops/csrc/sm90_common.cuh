@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (attention_fwd_sm90.cu, attention_bwd_sm90.cu): mbarriers, TMA loads,
-// wgmma m64n64k16 on bf16 tiles in the 128-byte swizzle, and the host's
-// tensor-map encoder.  Each kernel source includes it once; ops/_build.py
-// hashes it with every source that includes it, so an edit rebuilds them.
+// (attention_fwd_sm90.cu, attention_bwd_sm90.cu and their head-dim-128
+// forms *_d128.cu): mbarriers, TMA loads, wgmma m64n64k16 and m64n128k16 on
+// bf16 tiles in the 128-byte swizzle, bulk reduce-adds, the backward's
+// pre- and postprocess kernels, and the host's tensor-map encoder.  Each
+// kernel source includes it once; ops/_build.py hashes it with every source
+// that includes it, so an edit rebuilds them.
 
 #pragma once
 
@@ -48,14 +50,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // -------------------------------------------------------------------- TMA
 
-// One box of a 4-D tensor map (D, H, S, B) into shared memory; completion is
-// counted in bytes on `bar`.
+// One box of a 4-D tensor map (D, H, S, B) into shared memory, its first
+// column at `col`; completion is counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int s,
-                                         int b) {
+                                         int b, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(s), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(h), "r"(s), "r"(b)
       : "memory");
 }
 
@@ -74,6 +76,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
 // atom wide LBO is never used, so it is set equal to SBO.
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) { return sw128_desc(addr, 1024, 1024); }
+// Head dim 128: a bf16 row of 128 is two swizzle rows, so a tile is stored
+// as two 64-column halves, each its own stack of 1024-byte atoms, the second
+// `half_bytes` after the first.  K-major, k-steps 0-3 lie in the first half
+// and 4-7 in the second: kmajor_desc of the half, + 2 per step inside it.
+// MN-major with N = 128 (the two halves side by side): LBO is the step from
+// the first 64 columns of N to the next, i.e. `half_bytes`.
+__device__ __forceinline__ uint64_t mnmajor_desc_n128(uint32_t addr, uint32_t half_bytes) {
+  return sw128_desc(addr, half_bytes, 1024);
+}
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
@@ -127,6 +138,127 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same with N = 128 (64 accumulator floats a thread): columns 8i +
+// 2(t%4) and that + 1 in d[4i .. 4i+3] for i < 16, as for N = 64.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------------ bulk copies
+
+// dst[0:bytes] += src[0:bytes] as f32, shared to global, in the issuing
+// thread's bulk group.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, bulk copies).
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// ------------------------------------------- the backward's pre and post
+
+// di[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in f32, from the bf16
+// rows [B, S, H, D]: D / 8 threads per row, 16 bytes each.
+template <int D>
+__global__ void attn_bwd_sm90_pre_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                                         float* __restrict__ di, int H, int S, long long rows) {
+  constexpr int TPR = D / 8;
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long n = g / TPR;  // row of [B, S, H]
+  const int part = static_cast<int>(g % TPR);
+  float sum = 0.f;
+  if (n < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + n * D + part * 8);
+    const uint4 c = *reinterpret_cast<const uint4*>(dout + n * D + part * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(c2[i]);
+      sum = fmaf(x.x, y.x, sum);
+      sum = fmaf(x.y, y.y, sum);
+    }
+  }
+#pragma unroll
+  for (int m = TPR / 2; m > 0; m /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (n < rows && part == 0) {
+    const long long b = n / (static_cast<long long>(S) * H);
+    const int s = static_cast<int>((n / H) % S), h = static_cast<int>(n % H);
+    di[(b * H + h) * S + s] = sum;
+  }
+}
+
+// dq[b, s, h, :] = bf16(the accumulator's row), D / 8 threads per row, one
+// 8-column block (32 bytes in, 16 bytes out) each.  The accumulator holds
+// each (batch, head, BM-row tile) as one block [D / 8][BM][8] f32.
+template <int D, int BM>
+__global__ void attn_bwd_sm90_post_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq, int H, int S,
+                                          long long rows) {
+  constexpr int TPR = D / 8;
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long n = g / TPR;
+  const int cb = static_cast<int>(g % TPR);
+  if (n >= rows) return;
+  const long long b = n / (static_cast<long long>(S) * H);
+  const int s = static_cast<int>((n / H) % S), h = static_cast<int>(n % H);
+  const int n_q = (S + BM - 1) / BM;
+  const float* src = dq_acc + (((b * H + h) * n_q + s / BM) * TPR + cb) * (BM * 8) + (s % BM) * 8;
+  const float4 x0 = *reinterpret_cast<const float4*>(src), x1 = *reinterpret_cast<const float4*>(src + 4);
+  const uint4 val = {pack_bf16(x0.x, x0.y), pack_bf16(x0.z, x0.w), pack_bf16(x1.x, x1.y), pack_bf16(x1.z, x1.w)};
+  *reinterpret_cast<uint4*>(dq + n * D + cb * 8) = val;
+}
+
 // ------------------------------------------------------------------- host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -155,16 +287,18 @@ EncodeTiled encoder() {
 }
 
 // Tensor map over one [B, S, H, D] bf16 view with element strides (batch,
-// seq, head), dims ordered (D, H, S, B); a box is `rows` rows of one head,
+// seq, head), dims ordered (D, H, S, B); a box is `rows` rows of one head and
+// `cols` columns (all D when 0; at most 64, one 128-byte swizzle row),
 // 128-byte swizzled.  Rows past S read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int D, const long long* st, int rows) {
+int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int D, const long long* st, int rows,
+             int cols = 0) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return kNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2, static_cast<cuuint64_t>(st[1]) * 2,
                                  static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols ? cols : D), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

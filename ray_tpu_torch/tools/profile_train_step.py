@@ -20,7 +20,7 @@ from collections import defaultdict
 import torch
 
 GROUPS = (  # first match wins; names as CUDA reports the kernels
-    ("attention fwd (port kernel, sm90)", ("attn_fwd_sm90_kernel",)),
+    ("attention fwd (port kernel, sm90)", ("attn_fwd_sm90",)),  # at head dim 64 and 128
     ("attention fwd (port kernel, wmma)", ("attn_fwd_kernel",)),
     ("attention bwd (port kernel, sm90)", ("attn_bwd_sm90",)),  # with its pre/postprocess kernels
     ("attention bwd (port kernel, wmma)", ("attn_bwd_kernel",)),

@@ -1,12 +1,15 @@
-"""The Hopper forward kernel's algorithm and its dispatch, on the CPU.
+"""The Hopper forward kernels' algorithm and their dispatch, on the CPU.
 
-`attention_fwd_sm90.cu` runs only on the card.  Here a tile-level PyTorch
-mirror of its arithmetic (`_tiled_forward`: 128-row q tiles as two 64-row
-warpgroups, 64-key tiles, base-2 online softmax, the causal mask only on
-tiles that cross the diagonal, P rounded to the input dtype before P·V, lse
-converted back to natural log) is held against the port's plain version,
-against `ray_tpu.ops.attention._xla_causal_attention`, and against the
-splash kernel in Pallas interpret mode.  A fake ctypes library then shows
+`attention_fwd_sm90.cu` (head dim 64) and `attention_fwd_sm90_d128.cu`
+(head dim 128) run only on the card.  Here a tile-level PyTorch mirror of
+their arithmetic (`_tiled_forward`: 128-row q tiles as two 64-row
+warpgroups, key tiles of 64 at D=64 and 128 at D=128, S = Q K^T summed over
+the 64-column halves in turn at D=128 as the kernel's k-steps run, base-2
+online softmax, the causal mask only on tiles that cross the diagonal, P
+rounded to the input dtype before P·V, lse converted back to natural log) is
+held against the port's plain version, against
+`ray_tpu.ops.attention._xla_causal_attention`, and against the splash kernel
+in Pallas interpret mode at both head dims.  A fake ctypes library then shows
 that `attention_fwd` routes by (dtype, head_dim) alone, counts each launch
 on the kernel it reached, declares every pointer `c_void_p`, and raises on
 a non-zero return.
@@ -33,13 +36,24 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as port
 from ray_tpu_torch.tools import profile_train_step
 
-BM, BN, WG = 128, 64, 64  # the kernel's q tile, key tile, warpgroup rows
+BM, WG = 128, 64  # the kernels' q tile and warpgroup rows
+KEY_TILE = {64: 64, 128: 128}  # the key tile of each head dim's kernel
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _scores(q, k):
+    """q k^T as the kernels' k-steps sum it: over each 64-column half of the
+    head dim in turn (one swizzle row of bf16)."""
+    s = 0
+    for c in range(0, q.shape[-1], 64):
+        s = s + q[..., c:c + 64] @ k[..., c:c + 64].transpose(-1, -2)
+    return s
 
 
 def _tiled_forward(qs, k, v):
     """The kernel's arithmetic on pre-scaled q: (o [B,S,H,D], lse [B,H,S])."""
     B, S, H, D = qs.shape
+    BN = KEY_TILE[D]
     q32, k32, v32 = (t.float().transpose(1, 2) for t in (qs, k, v))  # [B, H, S, D]
     o = torch.zeros(B, H, S, D)
     lse = torch.zeros(B, H, S)
@@ -54,7 +68,7 @@ def _tiled_forward(qs, k, v):
             acc = torch.zeros(B, H, len(rows), D)
             for j in range(min(n_kv - 1, (wrow0 + WG - 1) // BN) + 1):
                 cols = torch.arange(j * BN, min(j * BN + BN, S))
-                s = q32[:, :, rows] @ k32[:, :, cols].transpose(-1, -2)
+                s = _scores(q32[:, :, rows], k32[:, :, cols])
                 if j * BN + BN - 1 > wrow0:  # the tile crosses the diagonal
                     s = s.masked_fill(cols[None, :] > rows[:, None], -math.inf)
                 m_new = torch.maximum(m, s.amax(-1) * LOG2E)
@@ -81,7 +95,7 @@ def _lse_reference(qs, k):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,D", [(1024, 64), (1000, 64), (100, 64), (1024, 128)])
+@pytest.mark.parametrize("S,D", [(1024, 64), (1000, 64), (100, 64), (1024, 128), (1000, 128), (100, 128)])
 def test_tiled_mirror_matches_plain_and_jax(S, D, dtype):
     B, H = 1, 2
     tdt, jdt = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
@@ -98,15 +112,15 @@ def test_tiled_mirror_matches_plain_and_jax(S, D, dtype):
     np.testing.assert_allclose(lse.numpy(), _lse_reference(qs, kt).numpy(), rtol=0, atol=1e-5, err_msg="lse")
 
 
-def test_tiled_mirror_matches_interpret_mode_splash():
+def _splash_forward_check(B, S, H, D, seed):
     """Splash's forward with its residuals, run as test_torch_attention.py
-    runs it (interpret mode, BlockSizes at 128, vmapped over batch)."""
+    runs it (interpret mode, BlockSizes at 128, vmapped over batch), against
+    the mirror on the same pre-scaled q."""
     from jax.experimental.pallas.ops.tpu.splash_attention import (
         splash_attention_kernel as sk,
         splash_attention_mask as smask,
     )
 
-    B, S, H, D = 2, 256, 2, 64
     mask = smask.MultiHeadMask([smask.CausalMask((S, S)) for _ in range(H)])
     bs = sk.BlockSizes(
         block_q=128, block_kv=128, block_kv_compute=128, block_q_dkv=128, block_kv_dkv=128,
@@ -115,12 +129,25 @@ def test_tiled_mirror_matches_interpret_mode_splash():
     )
     kernel = sk.make_splash_mha(mask, block_sizes=bs, head_shards=1, q_seq_shards=1, save_residuals=True,
                                 interpret=True)
-    q, k, v = _inputs(B, S, H, D, seed=7)
+    q, k, v = _inputs(B, S, H, D, seed=seed)
     qs = q * np.float32(D**-0.5)
     out, (lse,) = jax.vmap(kernel)(*(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (qs, k, v)))
     o_t, lse_t = _tiled_forward(*(torch.from_numpy(a) for a in (qs, k, v)))
     np.testing.assert_allclose(o_t.numpy(), np.asarray(out).transpose(0, 2, 1, 3), rtol=0, atol=1e-5)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse), rtol=0, atol=1e-5)
+
+
+def test_tiled_mirror_matches_interpret_mode_splash():
+    _splash_forward_check(2, 256, 2, 64, seed=7)
+
+
+@pytest.mark.parametrize("S", [1024, 256])
+def test_tiled_mirror_d128_matches_interpret_mode_splash(S):
+    """At Llama's head dim, where the mirror takes 128-key tiles and sums
+    the scores over the two 64-column halves.  Splash takes S only in
+    multiples of its 128-row blocks, so the ragged lengths (1000, 100) are
+    held against the plain and XLA versions alone."""
+    _splash_forward_check(1, S, 2, 128, seed=S)
 
 
 # ------------------------------------------------------------------ dispatch
@@ -162,7 +189,7 @@ def test_forward_routes_by_dtype_and_head_dim(fake_libs, dtype, D):
     q = torch.zeros(2, 16, 3, D, dtype=dtype)
     o, lse = port.attention_fwd(q, q, q)
     route = port._FWD_ROUTES[(dtype, D)]
-    assert route == ("sm90" if (dtype, D) == (torch.bfloat16, 64) else "wmma")
+    assert route == {(torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90_d128"}.get((dtype, D), "wmma")
     name, entry, counter = port._FWD_KERNELS[route]
     (called, args), = [c for lib in fake_libs.values() for c in lib.calls]
     assert called == entry and fake_libs[name].calls
@@ -199,4 +226,5 @@ def test_entry_points_declare_pointers_void_p(monkeypatch, name):
 
 def test_profiler_groups_both_forward_kernels():
     assert profile_train_step.group_of("attn_fwd_sm90_kernel(CUtensorMap_st, ...)").endswith("sm90)")
+    assert profile_train_step.group_of("attn_fwd_sm90_d128_kernel(CUtensorMap_st, ...)").endswith("sm90)")
     assert profile_train_step.group_of("void attn_fwd_kernel<__nv_bfloat16, 128, 4>(...)").endswith("wmma)")

@@ -48,6 +48,31 @@ def test_attention_bounds_at_gpt2_shape():
     assert bounds["causal_attention_bwd"] == (pytest.approx(bwd_flops / 989e12 * 1e3), "operations")
 
 
+@pytest.mark.parametrize("name", ["LLAMA_LONG_ATTN", "LLAMA_ATTN"])
+def test_attention_bounds_at_llama_shapes(name):
+    """Llama-2-7B's attention at LlamaConfig's default max_seq_len (B=1,
+    S=2048, H=32, D=128) is bound by operations in both directions: 3.4e10
+    FLOP forward and 8.6e10 backward over the causal pairs, against 67 MB
+    and 134 MB.  At the prefill shape (S=256) the forward is bound by its
+    bytes."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    shape = getattr(chip_smoke, name)
+    bounds = chip_smoke.attention_bounds(*shape)
+    if name == "LLAMA_LONG_ATTN":
+        assert shape == (1, 2048, 32, 128)
+        assert bounds["causal_attention_fwd"] == (pytest.approx(0.0348, abs=5e-5), "operations")
+        assert bounds["causal_attention_bwd"] == (pytest.approx(0.0869, abs=5e-5), "operations")
+        flops = chip_smoke.attention_flops(*shape, products=5)
+        assert bounds["causal_attention_bwd"][0] == pytest.approx(flops / 989e12 * 1e3)
+    else:
+        assert shape == (1, 256, 32, 128)
+        fwd_bytes = 4 * 256 * 32 * 128 * 2 + 32 * 256 * 4  # q, k, v, o in bf16; lse in f32
+        assert bounds["causal_attention_fwd"] == (pytest.approx(0.0025, abs=5e-5), "bytes")
+        assert bounds["causal_attention_fwd"][0] == pytest.approx(fwd_bytes / 3.35e12 * 1e3)
+
+
 def test_attention_flops_at_gpt2_shape():
     sys.path.insert(0, str(ROOT))
     import chip_smoke
