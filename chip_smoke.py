@@ -77,12 +77,39 @@ Phases:
      printed); summarize_workloads("serve") holds TTFT and TPOT; no process
      of the cluster is left after serve.shutdown() and shutdown().  Every
      cluster call carries a timeout.
+  8. (h) the step DAG: first the float32 kernels (the wmma route, which
+     float32 compute takes) at the attention of GPT-2 124M at batch 4, B=4
+     S=1024 H=12 D=64: routed and launched directly, checked against the
+     float32 plain version, timed beside it and float32 SDPA against the
+     float32 bound (FP32 peak, 4 bytes an element).  Then ray_tpu_torch.init
+     and TorchTrainer(train_step_spec=make_lm_step_spec("gpt2_124m",
+     batch=4, seq=1024, steps=12, checkpoint_every=6, learning_rate=3e-4))
+     fit twice on one cluster: the eager per-step path, then
+     TorchConfig(use_step_dag=True), the resident compiled DAG (dag_shard
+     -> dag_step -> dag_fold on the GPU worker actor, gang-armed).  Adam at
+     3e-4: at the spec's default 1e-2 GPT-2 124M diverges.  The spec's
+     build zeroes the worker's launch
+     counters and its final snapshot (an eager call at the drained step-12
+     boundary) reads them.  Checked for each run: the worker is another
+     process on this card with no jax or ray_tpu module; 12 x 24 forward and
+     12 x 12 backward launches, all wmma; the checkpoint at step 12 with
+     Adam's count 12; losses finite (each step draws a fresh batch of random
+     tokens, so the loss need not fall).  Across the runs: the first
+     loss bit-equal (the forward has no atomics), every loss within 1e-3
+     relative and the final weights within 1e-3 of each leaf's norm (the
+     backward's dq sums by atomicAdd; the key third of each qkv bias, whose
+     gradient is zero in exact arithmetic, within 2 x steps x lr); the eager
+     checkpoint's numpy leaves byte for byte as they were after its fit,
+     read again after the DAG run put its own (their store blocks were
+     freed by their owner meanwhile, and stay until the views go); no
+     process left after shutdown().  Printed: ms/step of each run between
+     step completions and their difference.
 Each phase prints its wall seconds.  Then one JSON line on the kernels (the
 D=64 kernels' launches from (b), error and times from phase 3; the
 sm90_d128 kernels' launches from (f), error and times at the prefill shape
-with the long shape's beside; the wmma kernels' launches from the float32
-checks, their D=128 error and times from direct launches) and, last,
-{"ok": true, "device": ...}.
+with the long shape's beside; the wmma kernels' launches from (h), their
+D=128 error and times from direct launches, with (h)'s float32 ones beside)
+and, last, {"ok": true, "device": ...}.
 Any failed check makes the script exit 1 without that last line, and an
 exception in any phase ends it with a traceback.  It exits 2 when no CUDA
 device is present.
@@ -118,9 +145,11 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+FP32_PEAK_FLOPS = 67e12  # H100 SXM FP32 peak without tensor cores (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SLICE_ATTN = (18, 1024, 12, 64)  # GPT-2 124M at bench batch 18: B, S, H, D
 CHECK_SHAPES = [  # B, S, H, D
@@ -289,11 +318,12 @@ def kernel_phase(att):
     return max_err, dict(att.LAUNCHES)
 
 
-def attention_bounds(B, S, H, D, elem=2):
+def attention_bounds(B, S, H, D, elem=2, peak=BF16_PEAK_FLOPS):
     """Least time (ms) of the causal forward and backward on this card:
-    operations over the bf16 peak vs bytes over HBM bandwidth.  Each input
-    read once and each output written once; operations counted over the
-    S(S+1)/2 causal (query, key) pairs."""
+    operations over `peak` (the bf16 peak; float32's for the float32
+    kernels) vs bytes over HBM bandwidth at `elem` bytes an element.  Each
+    input read once and each output written once; operations counted over
+    the S(S+1)/2 causal (query, key) pairs."""
     pairs = B * H * S * (S + 1) / 2
     t = B * S * H * D * elem
     lse = B * H * S * 4
@@ -303,7 +333,7 @@ def attention_bounds(B, S, H, D, elem=2):
     out = {}
     for name, flops, nbytes in (("causal_attention_fwd", fwd_flops, fwd_bytes),
                                 ("causal_attention_bwd", bwd_flops, bwd_bytes)):
-        t_ops, t_bytes = flops / BF16_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
     return out
 
@@ -314,16 +344,18 @@ def attention_flops(B, S, H, D, products=2):
     return 2 * products * D * B * H * S * (S + 1) / 2
 
 
-def timing_phase(att, shape=SLICE_ATTN, routes=("sm90", "wmma")):
+def timing_phase(att, shape=SLICE_ATTN, routes=("sm90", "wmma"), dtype=torch.bfloat16):
     """Kernel, plain-version and SDPA times (ms) of the forward and backward
-    kernels of `routes` at `shape` (B, S, H, D), and their bounds."""
+    kernels of `routes` at `shape` (B, S, H, D) in `dtype`, and their
+    bounds (float32: against the FP32 peak at 4 bytes an element)."""
     B, S, H, D = shape
+    peak = FP32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
     fwd_counters = {r: FWD_COUNTERS[r] for r in routes}
     bwd_counters = {r: BWD_COUNTERS[r] for r in routes}
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = qkv_views(B, S, H, D, torch.bfloat16, gen)
-    do = torch.randn(B, S, H, D, device="cuda", generator=gen).bfloat16()
-    qs = (q * torch.tensor(D**-0.5, dtype=torch.bfloat16)).contiguous()
+    q, k, v = qkv_views(B, S, H, D, dtype, gen)
+    do = torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
+    qs = (q * torch.tensor(D**-0.5, dtype=dtype)).contiguous()
     o, lse = att.attention_fwd(qs, k, v)
     times = {c: cuda_ms(lambda r=r: att._launch_fwd(r, qs, k, v)) for r, c in fwd_counters.items()}
     times.update({c: cuda_ms(lambda r=r: att._launch_bwd(r, qs, k, v, o, lse, do)) for r, c in bwd_counters.items()})
@@ -343,17 +375,17 @@ def timing_phase(att, shape=SLICE_ATTN, routes=("sm90", "wmma")):
     library = {c: lib_fwd for c in fwd_counters.values()}
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo, retain_graph=True))
     library.update(dict.fromkeys(bwd_counters.values(), lib_bwd))
-    bound = attention_bounds(B, S, H, D)
+    bound = attention_bounds(B, S, H, D, elem=dtype.itemsize, peak=peak)
     bounds = {c: bound["causal_attention_fwd"] for c in fwd_counters.values()}
     bounds.update(dict.fromkeys(bwd_counters.values(), bound["causal_attention_bwd"]))
     for name in times:
-        print(f"time {name} B={B} S={S} H={H} D={D}: kernel {times[name]:.4f} ms, plain {plain[name]:.4f} ms, "
+        print(f"time {name} {str(dtype)[6:]} B={B} S={S} H={H} D={D}: kernel {times[name]:.4f} ms, plain {plain[name]:.4f} ms, "
               f"sdpa {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
               f"{bounds[name][0] / times[name]:.1%} of the bound, {times[name] / library[name]:.2f}x sdpa", flush=True)
     for c in times:
         flops = attention_flops(B, S, H, D, products=2 if c in fwd_counters.values() else 5)
-        print(f"rate {c}: {flops / times[c] / 1e9:.1f} TFLOP/s "
-              f"({flops / times[c] / 1e9 / (BF16_PEAK_FLOPS / 1e12):.1%} of the bf16 peak)", flush=True)
+        print(f"rate {c} {str(dtype)[6:]}: {flops / times[c] / 1e9:.1f} TFLOP/s "
+              f"({flops / times[c] / 1e9 / (peak / 1e12):.1%} of the {str(dtype)[6:]} peak)", flush=True)
     return times, plain, library, bounds
 
 
@@ -918,6 +950,210 @@ def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=6
     return report
 
 
+STEP_DAG_MODEL = "gpt2_124m"  # (h): make_lm_step_spec's preset, float32 compute, plain Adam
+STEP_DAG_BATCH, STEP_DAG_SEQ, STEP_DAG_STEPS, STEP_DAG_CKPT = 4, 1024, 12, 6
+# Adam's rate: the spec's default, 1e-2 (sized for the `tiny` config),
+# moves every weight of GPT-2 124M (init std 0.02) by about half its size
+# each step: the loss climbed from 10.96 to 16.1 in 12 steps, and the
+# diverging run carried the backward's rounding differences (dq sums by
+# atomicAdd) into 1.5% of the loss.  3e-4 (make_train_step's default) trains.
+STEP_DAG_LR = 3e-4
+STEP_DAG_ATTN = (STEP_DAG_BATCH, STEP_DAG_SEQ, 12, 64)  # B, S, H, D of its attention, float32 (the wmma route)
+STEP_DAG_STORE_BYTES = 8 << 30  # a checkpoint is 1.5 GB of host numpy (params, Adam's mu and nu)
+# eager vs DAG final weights: within this much of each leaf's norm (the
+# backward's dq sums by atomicAdd, so runs differ by rounding that Adam
+# carries into the weights); the key third of each qkv bias, whose gradient
+# is zero in exact arithmetic, within 2 * steps * lr (Adam steps on noise)
+STEP_DAG_WEIGHT_TOL = 1e-3
+
+
+def step_dag_kernel_phase(att):
+    """The float32 kernels (the wmma route) at (h)'s attention shape: routed
+    through causal_attention and launched directly, each checked against the
+    float32 plain version (1e-4 absolute), then timed beside the plain
+    version and SDPA in float32 against the float32 bound.
+    (max_err, times, plain, library, bounds)."""
+    B, S, H, D = STEP_DAG_ATTN
+    what = f"f32 B={B} S={S} H={H} D={D}"
+    ek, _, taken, direct_err = attention_errors(att, B, S, H, D, torch.float32, "auto", seed=8, direct=True,
+                                                routes=("wmma",))
+    check_route(att, taken, torch.float32, D, f"{what} impl=auto (step DAG)")
+    for n, e in ek.items():
+        check(f"{n} {what} impl=auto", e <= 1e-4, f"{e:.3e} tol 1e-4")
+    for c, errs in direct_err.items():
+        for n, e in errs.items():
+            check(f"{n} {what} {c}", e <= 1e-4, f"{e:.3e} tol 1e-4")
+    max_err = {c: max(errs.values()) for c, errs in direct_err.items()}
+    return (max_err, *timing_phase(att, STEP_DAG_ATTN, routes=("wmma",), dtype=torch.float32))
+
+
+def instrumented_spec(spec):
+    """`spec` with its build, fold and snapshot wrapped for (h): build turns
+    TF32 off (as in the driver, phase 1) and zeroes the worker's launch
+    counters before the run; fold stamps each step's completion; the
+    snapshot, an eager call at a drained step boundary, also carries the
+    launch counts, the stamps and what the worker is.  Closures, so that
+    cloudpickle ships them by value: the worker needs nothing of this script."""
+    build, fold, snapshot, restore = spec.build, spec.fold, spec.snapshot, spec.restore
+
+    def build_(config, rank, world):
+        import torch
+
+        from ray_tpu_torch.ops import attention as att
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        att.reset_launch_counts()
+        state = build(config, rank, world)
+        state["fold_t"] = []
+        return state
+
+    def fold_(state, metrics):
+        import time
+
+        out = fold(state, metrics)  # float(loss): the step's work is done
+        state["fold_t"].append(time.perf_counter())
+        return out
+
+    def snapshot_(state):
+        import os
+        import sys
+
+        import torch
+
+        from ray_tpu_torch.ops import attention as att
+
+        return {
+            "lm": snapshot(state),
+            "launches": dict(att.LAUNCHES),
+            "fold_t": list(state["fold_t"]),
+            "pid": os.getpid(),
+            "device": torch.cuda.get_device_name() if state["device"].type == "cuda" else "cpu",
+            "forbidden_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")),
+        }
+
+    def restore_(state, snap):
+        restore(state, snap["lm"])
+
+    return dataclasses.replace(spec, build=build_, fold=fold_, snapshot=snapshot_, restore=restore_)
+
+
+def ms_per_step(fold_t):
+    """Mean ms between step completions, leaving out the first step's
+    (warm-up) and the one across the checkpoint (the snapshot's transfer)."""
+    gaps = [b - a for i, (a, b) in enumerate(zip(fold_t, fold_t[1:])) if i not in (0, STEP_DAG_CKPT - 1)]
+    return sum(gaps) / len(gaps) * 1e3
+
+
+def checkpoint_crc(leaves):
+    """{name: crc32 of the bytes} of a checkpoint's numpy leaves."""
+    import zlib
+
+    return {n: zlib.crc32(memoryview(np.ascontiguousarray(a)).cast("B")) for n, a in leaves.items()}
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in flat_leaves(tree[key], f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def step_dag_phase(kind, card, model=STEP_DAG_MODEL, batch=STEP_DAG_BATCH, seq=STEP_DAG_SEQ, device="cuda"):
+    """(h): GPT-2 124M through ray_tpu_torch.init → TorchTrainer(train_step_spec=
+    make_lm_step_spec(...)) → fit_spec, once on the eager per-step path and
+    once through the resident step DAG (TrainStepDag), one after the other
+    on one cluster, each in its own GPU worker actor.  Every cluster call
+    inside fit carries the runtime's timeouts (a step's metrics:
+    train_dag_step_timeout_s).  Returns the runs' figures:
+    {"eager"|"dag": {...}}."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.lm_train import make_lm_step_spec
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.torch.config import TorchConfig
+
+    cfg = getattr(GPT2Config, model)() if isinstance(model, str) else model
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the worker needs the card's memory, not this process
+    before = session_processes(os.getpid())
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=STEP_DAG_STORE_BYTES)
+    runs, crc = {}, {}
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU", 0)
+        check("step DAG (h) cluster counts one GPU", gpus == 1, f"cluster_resources GPU = {gpus}")
+        for name, use_dag in (("eager", False), ("dag", True)):
+            spec = instrumented_spec(make_lm_step_spec(model, batch=batch, seq=seq, steps=STEP_DAG_STEPS,
+                                                       checkpoint_every=STEP_DAG_CKPT, learning_rate=STEP_DAG_LR,
+                                                       device=device))
+            t0 = time.perf_counter()
+            result = TorchTrainer(train_step_spec=spec, backend_config=TorchConfig(use_step_dag=use_dag),
+                                  scaling_config=ScalingConfig(num_workers=1)).fit()
+            ckpt = result.checkpoint.to_dict()
+            runs[name] = {"fit_s": time.perf_counter() - t0, "losses": [m["loss"] for m in result.metrics_history],
+                          "step": ckpt["step"], "snap": ckpt["spec_state"]}
+            crc[name] = checkpoint_crc(flat_leaves(ckpt["spec_state"]["lm"]))
+        # fault 0: the eager checkpoint's leaves are views of store blocks its
+        # owner freed when fit() returned; the DAG run's puts came after
+        after = checkpoint_crc(flat_leaves(runs["eager"]["snap"]["lm"]))
+    finally:
+        cluster = session_processes(global_worker.head_proc.pid)
+        ray_tpu_torch.shutdown()
+    steps = STEP_DAG_STEPS
+    per_fwd = 2 * cfg.n_layer if cfg.remat else cfg.n_layer
+    for name, run in runs.items():
+        snap = run["snap"]
+        run["ms_per_step"] = ms_per_step(snap["fold_t"])
+        run["launches"] = snap["launches"]
+        print(f"step DAG (h) {name}: GPT-2 {model} B={batch} S={spec.config['seq']} f32, {steps} steps through TorchTrainer on "
+              f"{card}: {run['ms_per_step']:.2f} ms/step; fit {run['fit_s']:.1f} s; worker pid {snap['pid']}, "
+              f"device {snap['device']}, jax/ray_tpu modules {snap['forbidden_modules']}", flush=True)
+        print(f"step DAG (h) {name} losses {['%.6f' % x for x in run['losses']]}", flush=True)
+        print(f"step DAG (h) {name} launches {run['launches']}", flush=True)
+        check(f"step DAG (h) {name} worker is another process", snap["pid"] != os.getpid(), f"worker {snap['pid']}")
+        check(f"step DAG (h) {name} worker on this card", snap["device"] == kind, f"{snap['device']!r} vs {kind!r}")
+        check(f"step DAG (h) {name} worker loads no jax or ray_tpu module", snap["forbidden_modules"] == [],
+              f"{snap['forbidden_modules']}")
+        la = run["launches"]
+        check(f"step DAG (h) {name} launches all on the wmma kernels",
+              la["causal_attention_fwd_wmma"] == la["causal_attention_fwd"] == per_fwd * steps
+              and la["causal_attention_bwd_wmma"] == la["causal_attention_bwd"] == cfg.n_layer * steps,
+              f"fwd wmma {la['causal_attention_fwd_wmma']} of {la['causal_attention_fwd']}, bwd wmma "
+              f"{la['causal_attention_bwd_wmma']} of {la['causal_attention_bwd']}; want {per_fwd * steps} and "
+              f"{cfg.n_layer * steps}")
+        check(f"step DAG (h) {name} checkpoint at step {steps}",
+              run["step"] == steps and int(snap["lm"]["opt_state"]["count"]) == steps,
+              f"step {run['step']}, Adam count {int(snap['lm']['opt_state']['count'])}")
+        check(f"step DAG (h) {name} losses finite", all(math.isfinite(x) for x in run["losses"]),
+              f"{run['losses'][0]:.6f} .. {run['losses'][-1]:.6f}")
+    eager, dag = runs["eager"], runs["dag"]
+    saved = eager["ms_per_step"] - dag["ms_per_step"]
+    print(f"step DAG (h) ms/step eager {eager['ms_per_step']:.3f}, DAG {dag['ms_per_step']:.3f}, difference "
+          f"{saved:.3f} ({card})", flush=True)
+    check("step DAG (h) first loss bit-equal eager vs DAG", eager["losses"][0] == dag["losses"][0],
+          f"{eager['losses'][0]!r} vs {dag['losses'][0]!r}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(eager["losses"], dag["losses"]))
+    check("step DAG (h) every loss within 1e-3 relative eager vs DAG", rel <= 1e-3, f"max {rel:.3e}")
+    pe, pd = eager["snap"]["lm"]["params"], dag["snap"]["lm"]["params"]
+    E, lr = cfg.n_embd, spec.config["lr"]
+    wrel, kdiff = {}, 0.0
+    for n in pd:
+        a, b = pe[n].astype(np.float64), pd[n].astype(np.float64)
+        if n.endswith("qkv.bias"):
+            kdiff = max(kdiff, float(np.abs(a[E : 2 * E] - b[E : 2 * E]).max()))
+            a, b = np.delete(a, np.s_[E : 2 * E]), np.delete(b, np.s_[E : 2 * E])
+        wrel[n] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    worst = max(wrel, key=wrel.get)
+    check(f"step DAG (h) final weights within {STEP_DAG_WEIGHT_TOL:g} of each leaf's norm",
+          wrel[worst] <= STEP_DAG_WEIGHT_TOL, f"max {wrel[worst]:.3e} ({worst})")
+    check("step DAG (h) final key biases within 2 * steps * lr", kdiff <= 2 * steps * lr,
+          f"max |diff| {kdiff:.3e}, bound {2 * steps * lr:.3e}")
+    check("step DAG (h) eager checkpoint intact after the DAG run", after == crc["eager"],
+          f"{sum(after[n] != crc['eager'][n] for n in after)} of {len(after)} leaves changed")
+    await_no_leftover("step DAG (h)", cluster, before)
+    return runs
+
+
 def build_phase(att):
     """Build every kernel source at once; print registers and spills per
     kernel (ptxas), failing if an sm90 kernel spills, and the sm90 forward's
@@ -996,14 +1232,14 @@ def main() -> int:
 
     # 6. (f) Llama-2-7B direct: the head-dim-128 kernels at its prefill and
     # long shapes, then the model.  The sm90_d128 kernels' line reads (f)'s
-    # launches and the prefill shape's numbers; the wmma kernels' line the
-    # float32 checks' launches (their route) and their direct launches at
-    # the prefill shape; both carry the long shape's numbers beside.
+    # launches and the prefill shape's numbers; the wmma kernels' line
+    # their direct launches at the prefill shape (launches: (h)'s, below);
+    # both carry the long shape's numbers beside.
     with timed("6 (f) llama direct"):
         d128 = llama_kernel_phase(att)
         llama_launches, _, direct_tokens = llama_phase(att, smi)
     long = {}
-    for route, source in (("sm90_d128", llama_launches), ("wmma", f32_launches)):
+    for route, source in (("sm90_d128", llama_launches), ("wmma", f32_launches)):  # wmma's replaced in (h)
         for name in (FWD_COUNTERS[route], BWD_COUNTERS[route]):
             launches[name] = source[name]
             for table, value in zip((max_err, times, plain, library, bounds), d128[LLAMA_ATTN]):
@@ -1017,10 +1253,24 @@ def main() -> int:
     with timed("7 (g) serve"):
         serve_phase(kind, smi, direct_tokens)
 
-    return finish(kernel_report(launches, max_err, times, plain, library, bounds, long), kind)
+    # 8. (h) the step DAG: GPT-2 124M in float32 through TorchTrainer's
+    # eager per-step path and TrainStepDag, on the wmma kernels.  Their
+    # launches in the kernels line are (h)'s (both runs), with (h)'s
+    # shape's error and times beside the D=128 ones.
+    with timed("8 (h) step DAG"):
+        f32_err, f32_times, f32_plain, f32_library, f32_bounds = step_dag_kernel_phase(att)
+        runs = step_dag_phase(kind, smi)
+    f32 = {}
+    for name in (FWD_COUNTERS["wmma"], BWD_COUNTERS["wmma"]):
+        launches[name] = sum(run["launches"][name] for run in runs.values())
+        f32[name] = {"shape": list(STEP_DAG_ATTN), "dtype": "float32", "max_abs_err": f32_err[name],
+                     "ms": f32_times[name], "plain_ms": f32_plain[name], "bound_ms": f32_bounds[name][0],
+                     "bound_by": f32_bounds[name][1], "library_ms": f32_library[name]}
+
+    return finish(kernel_report(launches, max_err, times, plain, library, bounds, long, f32), kind)
 
 
-def kernel_report(launches, max_err, times, plain, library, bounds, long):
+def kernel_report(launches, max_err, times, plain, library, bounds, long, f32):
     d128 = "launches from Llama-2-7B's apply and loss (phase (f)); error and times at its prefill shape B=1 S=256 H=32 D=128"
     info = {  # name -> (source, replaces, status)
         "causal_attention_fwd_sm90": (
@@ -1032,8 +1282,9 @@ def kernel_report(launches, max_err, times, plain, library, bounds, long):
             f"ported (wgmma, TMA in 64-column halves, producer warp); bf16 at D=128, Llama's forward; {d128}"),
         "causal_attention_fwd_wmma": (
             "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:1137",
-            "ported (WMMA); float32 at D=64 and 128 (launches from the float32 checks, phase 3), and the "
-            "in-run yardstick of the sm90_d128 forward: error and times from direct launches at B=1 S=256 H=32 D=128"),
+            "ported (WMMA); float32 at D=64 and 128: launches from the step DAG phase (h), GPT-2 124M in float32 "
+            "(eager and DAG runs), its float32 error and times under 'f32'; the in-run yardstick of the sm90_d128 "
+            "forward: error and times from direct launches at B=1 S=256 H=32 D=128"),
         "causal_attention_bwd_sm90": (
             "ray_tpu_torch/ops/csrc/attention_bwd_sm90.cu", f"{TPU_KERNELS}:2196",  # _splash_attention_bwd_dkv, fused
             "ported (wgmma, TMA, bulk reduce-add of dq); bf16 at D=64, the GPT-2 path's backward (slice (b)); "
@@ -1044,8 +1295,9 @@ def kernel_report(launches, max_err, times, plain, library, bounds, long):
             f"bf16 at D=128, Llama's backward; {d128}"),
         "causal_attention_bwd_wmma": (
             "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:2196",
-            "ported (WMMA); float32 at D=64 and 128 (launches from the float32 checks, phase 3), and the "
-            "in-run yardstick of the sm90_d128 backward: error and times from direct launches at B=1 S=256 H=32 D=128"),
+            "ported (WMMA); float32 at D=64 and 128: launches from the step DAG phase (h), GPT-2 124M in float32 "
+            "(eager and DAG runs), its float32 error and times under 'f32'; the in-run yardstick of the sm90_d128 "
+            "backward: error and times from direct launches at B=1 S=256 H=32 D=128"),
     }
     return [
         {
@@ -1062,6 +1314,7 @@ def kernel_report(launches, max_err, times, plain, library, bounds, long):
             "bound_by": bounds[name][1],
             "library_ms": library[name],
             **({"long": long[name]} if name in long else {}),
+            **({"f32": f32[name]} if name in f32 else {}),
         }
         for name, (source, replaces, status) in info.items()
     ]

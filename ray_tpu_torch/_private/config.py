@@ -103,6 +103,13 @@ _CONFIG_DEF: Dict[str, tuple] = {
     # -- serve --
     "serve_drain_deadline_s": (float, 30.0, "graceful-drain budget on scale-in: a draining replica finishes in-flight work within this window or is killed (deadline escalation, recorded as outcome=deadline)"),
     "serve_load_poll_period_s": (float, 1.0, "controller poll period for replica load snapshots piggybacked onto routing publishes for least-pressure routing"),
+    # -- compiled actor DAGs (ray_tpu_torch/dag/) --
+    "dag_ring_slot_min_bytes": (int, 1 << 20, "minimum slot size for a compiled-DAG shm channel ring (sized at 2x the first payload, floored here; bigger payloads overflow inline onto the carrier conn)"),
+    "dag_channel_slots": (int, 4, "slots per compiled-DAG shm channel ring (SPSC depth before the writer back-pressures)"),
+    "dag_setup_timeout_s": (float, 30.0, "per-participant deadline for DAG_SETUP/DAG_TEARDOWN negotiation (includes waiting out actor creation)"),
+    # -- resident DAG training loop (ray_tpu_torch/train/torch/step_dag.py) --
+    "train_dag_pipeline_depth": (int, 2, "steps the resident train DAG keeps in flight at the driver (batch N+1 enters the input ring while the device runs batch N; bounded additionally by dag_channel_slots)"),
+    "train_dag_step_timeout_s": (float, 300.0, "deadline for one resident train step's metrics to reach the driver before the graph is declared stuck and invalidated"),
 }
 
 

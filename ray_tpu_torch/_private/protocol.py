@@ -38,9 +38,7 @@ class MsgType(enum.IntEnum):
     #   PIN_OBJECT=47   (pinning rides ADD_REF / task-spec containment)
     #   PUBSUB_POLL=57  (subscribers get pushed PUBLISH frames)
     #   ERROR_PUSH=80   (task errors reach drivers as stored RayTaskError values)
-    #   DAG_TEARDOWN=97, DAG_PUSH=98, DAG_STEP=99, DAG_ARM=113 (compiled DAGs,
-    #   not ported yet), DEVICE_FREE=115 (the device object tier, not
-    #   ported yet)
+    #   DEVICE_FREE=115 (the device object tier, not ported yet)
 
     # replies
     REPLY = 0
@@ -125,10 +123,17 @@ class MsgType(enum.IntEnum):
     # chaos-aware processes over the "chaos" pubsub channel
     CHAOS_CTRL = 95
 
-    # compiled actor DAGs' channel setup and the serve engine's stream
-    # negotiation, on the direct-call conns: not ported yet, a worker
-    # answers both with NotImplementedError
+    # compiled actor DAGs (ray_tpu_torch/dag/): channel setup/teardown
+    # rides the direct-call conns; DAG_PUSH is the per-step doorbell+data
+    # frame on the pre-wired channels; DAG_STEP carries a node's
+    # flight-recorder stamps to the head (fire-and-forget, only when task
+    # events are on)
     DAG_SETUP = 96
+    DAG_TEARDOWN = 97
+    DAG_PUSH = 98
+    DAG_STEP = 99
+    # the serve engine's stream negotiation: not ported yet, a worker
+    # answers it with NotImplementedError
     ENGINE_STREAM = 102
 
     # workload-plane flight records (fire-and-forget, batched, sent only
@@ -181,6 +186,14 @@ class MsgType(enum.IntEnum):
     # can reconcile the replayed WAL state against what actually survived
     # (reference analog: HandleNotifyGCSRestart, node_manager.cc:1161)
     REATTACH = 114
+
+    # -- compiled-DAG gang setup (ray_tpu_torch/dag/compiled.py) ---------
+    # Second phase of the two-phase gang compile: DAG_SETUP with
+    # ``arm: false`` installs channels/executors WITHOUT starting the
+    # resident loops, then one DAG_ARM per participant starts every loop
+    # only after ALL participants reported installed — a multi-host mesh
+    # arms atomically or not at all (train/torch/step_dag.py).
+    DAG_ARM = 113
 
     # structured log plane (util/OBSERVABILITY.md "Logs"): LOG_FETCH is
     # the pull-based retrieval RPC — client → head resolves an entity

@@ -53,6 +53,16 @@ PHASES = (
     "put_start",  # worker: serializing + storing return values
     "put_end",
     "done",  # head: TASK_DONE frame joined into the record
+    # -- compiled-DAG steps (ray_tpu_torch/dag/executor.py) --------------
+    # A compiled step never transits the head, so its record is a separate
+    # sub-lifecycle stamped entirely by the executing node and shipped on
+    # the fire-and-forget DAG_STEP frame: block on input channels → run the
+    # bound method → push to consumer channels.
+    "dag_channel_wait_start",  # executor: blocking on input channels
+    "dag_channel_wait_end",
+    "dag_exec_start",  # executor: bound method entered
+    "dag_exec_end",
+    "dag_push_end",  # executor: result handed to every consumer channel
     # -- serve request lifecycle (ray_tpu_torch/serve/tracing.py) --------------
     # A serve request is its own sub-lifecycle: the ingress (HTTP proxy or
     # a bare DeploymentHandle) stamps the front, the replica stamps the
@@ -98,6 +108,12 @@ DURATIONS = {
     "exec": ("exec_start", "exec_end"),
     "put": ("put_start", "put_end"),
     "e2e": ("submit", "done"),
+    # compiled-DAG step phases: all three pair stamps from ONE process
+    # (the executing node), so they are immune to clock skew by
+    # construction.  Eager records lack these stamps and skip them.
+    "dag_channel_wait": ("dag_channel_wait_start", "dag_channel_wait_end"),
+    "dag_exec": ("dag_exec_start", "dag_exec_end"),
+    "dag_push": ("dag_exec_end", "dag_push_end"),
     # serve request stages: route/deliver cross processes (ingress →
     # replica, ±NTP skew off-host); everything from replica_recv on pairs
     # stamps from the replica process.  Eager/task records lack these

@@ -30,10 +30,12 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Declare this method as a node in a static dataflow graph
-        (compiled actor DAGs).  Not ported yet."""
-        raise NotImplementedError(
-            "compiled actor DAGs (.bind) are not ported yet (ROADMAP, Queue 1: the step DAG)"
-        )
+        (compiled actor DAGs, ray_tpu_torch/dag/).  Args may be other bound
+        nodes, an InputNode, or plain constants; nothing executes until
+        the graph is compiled and driven with ``compiled.execute()``."""
+        from ray_tpu_torch.dag.node import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
     def options(self, num_returns: int = 1, **_):
         return ActorMethod(self._handle, self._method_name, num_returns)

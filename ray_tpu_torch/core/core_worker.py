@@ -2493,6 +2493,59 @@ class CoreWorker:
                 args.append(value)
         return tuple(args), kwargs
 
+    # -------------------------------------------- compiled-DAG channel conns
+
+    def open_dag_conn(self, addr: str, on_push, on_close):
+        """Dial a compiled-DAG carrier connection to a participant actor's
+        direct-call server and service it on the io loop: DAG_PUSH frames
+        route to ``on_push`` (io-thread context, must not block), replies
+        pair with in-flight ``dag_rpc`` requests, and transport loss fires
+        ``on_close`` exactly once.  These conns are owned by the compiled
+        graph (ray_tpu_torch/dag/compiled.py), not the shared direct-call cache:
+        a severed channel must invalidate its graph, never a neighbour's
+        eager calls."""
+        host, port_s = addr.rsplit(":", 1)
+        conn = self.io.call(
+            Connection.connect(
+                host, int(port_s), RayConfig.connect_timeout_s, retry=False
+            )
+        )
+        self.io.spawn(self._dag_read_loop(conn, on_push, on_close))
+        return conn
+
+    async def _dag_read_loop(self, conn: Connection, on_push, on_close):
+        try:
+            while True:
+                msg_type, rid, payload = await conn.read_frame()
+                if conn.dispatch_reply(msg_type, rid, payload):
+                    continue
+                if msg_type == MsgType.DAG_PUSH:
+                    on_push(payload)
+        except (asyncio.IncompleteReadError, ConnectionError, OSError):
+            conn.close()
+            try:
+                on_close()
+            except Exception:  # noqa: BLE001
+                logger.exception("dag conn close callback raised")
+
+    def dag_rpc(self, conn: Connection, msg_type, payload: dict, timeout: float):
+        """Channel-negotiation RPC (DAG_SETUP / DAG_TEARDOWN) on a carrier
+        conn opened by open_dag_conn.  The outer wait is bounded too: a
+        stopped-but-not-closed io loop (driver shutdown racing a dag
+        teardown) would otherwise park the coroutine forever and hang
+        ``fut.result()``."""
+        try:
+            return self.io.call(conn.request(msg_type, payload, timeout), timeout + 5)
+        except (concurrent.futures.TimeoutError, asyncio.TimeoutError) as e:
+            # both are distinct from builtin TimeoutError until 3.11 (the
+            # outer fut.result raises the former, the request's inner
+            # wait_for the latter): normalize so callers' TimeoutError
+            # handling covers every stalled-rpc case
+            raise TimeoutError(f"dag rpc {msg_type} timed out after {timeout + 5:.0f}s") from e
+
+    def close_dag_conn(self, conn: Connection):
+        self.io.loop.call_soon_threadsafe(conn.close)
+
     # ----------------------------------------------------- actors / cluster
 
     def get_named_actor(self, name: str, namespace: str):

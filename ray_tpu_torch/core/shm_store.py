@@ -85,8 +85,9 @@ class _Lib:
                 ctypes.POINTER(ctypes.c_uint64),
                 ctypes.POINTER(ctypes.c_uint64),
             ]
+            lib.store_release.restype = ctypes.c_int
+            lib.store_release.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
             for name in (
-                "store_release",
                 "store_contains",
                 "store_delete",
                 "store_delete_if_unpinned",
@@ -129,9 +130,10 @@ class _PinnedRegion:
     allows it.
     """
 
-    def __init__(self, store: "ShmObjectStore", oid: bytes, view: memoryview):
+    def __init__(self, store: "ShmObjectStore", oid: bytes, offset: int, view: memoryview):
         self._store = store
         self._oid = oid
+        self._offset = offset  # names the pinned block (store_release)
         self._view = view
 
     def __buffer__(self, flags):
@@ -139,7 +141,7 @@ class _PinnedRegion:
 
     def __del__(self):
         try:
-            self._store.release(self._oid)
+            self._store.release(self._oid, self._offset)
         except Exception:  # graftlint: disable=silent-except -- interpreter-teardown __del__; the segment may already be unmapped
             pass
 
@@ -238,14 +240,13 @@ class ShmObjectStore:
             raise
         if self._lib.store_seal(self._handle, object_id) != 0:
             # the only way an ALLOCATED slot stops being sealable is a
-            # concurrent store_delete (it tombstones regardless of the
-            # creator pin): the owner's last reference died while we were
+            # concurrent store_delete (an unsealed object is freed at once,
+            # creator pin or not): the owner's last reference died while we were
             # writing, so the value is unreachable by contract — degrade
             # to a no-op rather than failing the producing task (seen as
             # actor creations poisoned by their own dropped creation ref)
             self._lib.store_abort(self._handle, object_id)
             return False
-        self._lib.store_release(self._handle, object_id)  # drop creator pin
         return True
 
     def get_serialized(self, object_id: bytes) -> Optional[SerializedObject]:
@@ -256,7 +257,7 @@ class ShmObjectStore:
         rc = self._lib.store_get(self._handle, object_id, ctypes.byref(off), ctypes.byref(size))
         if rc != 0:
             return None
-        region = _PinnedRegion(self, object_id, self._mv[off.value : off.value + size.value])
+        region = _PinnedRegion(self, object_id, off.value, self._mv[off.value : off.value + size.value])
         if _MEMORYVIEW_DELEGATES:
             view = memoryview(region)  # slices keep `region` (the pin) alive
             copy_out = False
@@ -303,7 +304,7 @@ class ShmObjectStore:
             )
             return bytes(metadata)
         finally:
-            self._lib.store_release(self._handle, object_id)
+            self._lib.store_release(self._handle, object_id, off.value)
 
     # -- raw ops (object-transfer layer) --------------------------------------
 
@@ -318,7 +319,7 @@ class ShmObjectStore:
         rc = self._lib.store_get(self._handle, object_id, ctypes.byref(off), ctypes.byref(size))
         if rc != 0:
             return None
-        region = _PinnedRegion(self, object_id, self._mv[off.value : off.value + size.value])
+        region = _PinnedRegion(self, object_id, off.value, self._mv[off.value : off.value + size.value])
         if _MEMORYVIEW_DELEGATES:
             return memoryview(region)
         # pre-3.12: copy the wire image out under the pin (`region` lives
@@ -452,14 +453,13 @@ class ShmObjectStore:
         rc = self._lib.store_get(self._handle, object_id, ctypes.byref(off), ctypes.byref(size))
         if rc != 0:
             return None
-        region = _PinnedRegion(self, object_id, self._mv[off.value : off.value + size.value])
+        region = _PinnedRegion(self, object_id, off.value, self._mv[off.value : off.value + size.value])
         return region._view, region
 
     def raw_seal(self, object_id: bytes):
         if self._lib.store_seal(self._handle, object_id) != 0:
             self._lib.store_abort(self._handle, object_id)
             raise RuntimeError("seal failed")
-        self._lib.store_release(self._handle, object_id)  # drop creator pin
 
     def raw_abort(self, object_id: bytes):
         self._lib.store_abort(self._handle, object_id)
@@ -469,11 +469,14 @@ class ShmObjectStore:
             return False
         return bool(self._lib.store_contains(self._handle, object_id))
 
-    def release(self, object_id: bytes):
+    def release(self, object_id: bytes, offset: int):
+        """Drop one pin that a get at ``offset`` took."""
         if self._handle:
-            self._lib.store_release(self._handle, object_id)
+            self._lib.store_release(self._handle, object_id, offset)
 
     def delete(self, object_id: bytes):
+        """The owner-driven free: a sealed object that a reader still pins
+        is freed by that reader's last release (store.cc, store_delete)."""
         if self._handle:
             self._lib.store_delete(self._handle, object_id)
 

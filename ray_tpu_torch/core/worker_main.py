@@ -51,7 +51,9 @@ class WorkerRuntime:
         self._concurrency_sem: Optional[threading.Semaphore] = None
         self._direct_server = None
         self._direct_port = 0
-        # a sequential actor's one-call-at-a-time contract
+        # mutual exclusion between eager actor calls and compiled-DAG
+        # executor steps (ray_tpu_torch/dag/): a sequential actor keeps its
+        # one-call-at-a-time contract across both modes
         self.actor_lock = named_lock("WorkerRuntime.actor_lock")
         # lease fast path (control plane): batched completion frames per
         # holder conn + batched flight records to the head.  Flushing is
@@ -72,6 +74,7 @@ class WorkerRuntime:
         # the head and double-executed on the restored state
         self._inflight = 0
         self._inflight_cv = named_condition("WorkerRuntime._inflight_cv")
+        self._dag_runtime = None  # lazy: ray_tpu_torch.dag.executor.DagWorkerRuntime
         # per-caller sequential ordering across the head→direct transition
         # (reference analog: sequential_actor_submit_queue.cc): seq we expect
         # next per caller_id, plus held-back out-of-order specs
@@ -408,6 +411,17 @@ class WorkerRuntime:
         except Exception:  # graftlint: disable=silent-except -- best-effort; the agent also learns via lease-push failures
             pass
 
+    def dag_runtime(self):
+        """Lazy compiled-DAG runtime (ray_tpu_torch/dag/executor.py) —
+        created on the first DAG_SETUP so workers that never join a compiled
+        graph never import the dag subsystem.  Only called from the io loop
+        (direct-server frame handlers), so no lock is needed."""
+        if self._dag_runtime is None:
+            from ray_tpu_torch.dag.executor import DagWorkerRuntime
+
+            self._dag_runtime = DagWorkerRuntime(self)
+        return self._dag_runtime
+
     # ------------------------------------------------------------ execution
 
     def _execute_guarded(self, spec: TaskSpec, reply_to=None):
@@ -696,7 +710,9 @@ class WorkerRuntime:
                 fut = asyncio.run_coroutine_threadsafe(method(*args, **kwargs), self.actor.async_loop)
                 return fut.result()
             if self._concurrency_sem is None:
-                # sequential actor: one call at a time.
+                # sequential actor: eager calls and resident compiled-DAG
+                # steps (dag/executor.py takes the same lock) stay mutually
+                # excluded, preserving the one-call-at-a-time contract.
                 # Step OUT of the in-flight count while waiting for the
                 # lock: a preemption fence holding it needs to see
                 # quiescence, and a call that never entered user code is
@@ -783,14 +799,54 @@ class WorkerRuntime:
                         # per spec, completions batch back on LEASE_DONE
                         for wire in payload.get("specs", []):
                             self.task_queue.put({"spec": wire, "lease": conn})
-                    elif msg_type in (MsgType.DAG_SETUP, MsgType.ENGINE_STREAM):
-                        # compiled DAGs and the serve engine are not ported
+                    elif msg_type == MsgType.DAG_PUSH:
+                        # compiled-step doorbell: O(1) enqueue to the node's
+                        # channel, the resident executor thread does the rest
+                        if self._dag_runtime is not None:
+                            self._dag_runtime.handle_push(payload)
+                    elif msg_type == MsgType.DAG_SETUP:
+                        try:
+                            reply = await self.dag_runtime().handle_setup(payload, conn)
+                        except Exception as e:  # noqa: BLE001 -- reported to the compiling driver
+                            await conn.reply(rid, {}, error=f"{type(e).__name__}: {e}")
+                        else:
+                            await conn.reply(rid, reply)
+                    elif msg_type == MsgType.DAG_ARM:
+                        # gang-setup phase 2: start resident loops installed
+                        # by an unarmed DAG_SETUP (atomic multi-host arming)
+                        if self._dag_runtime is None:
+                            await conn.reply(
+                                rid, {}, error="no dag runtime (setup never ran)"
+                            )
+                        else:
+                            try:
+                                reply = await self._dag_runtime.handle_arm(payload)
+                            except Exception as e:  # noqa: BLE001 -- reported to the compiling driver
+                                await conn.reply(
+                                    rid, {}, error=f"{type(e).__name__}: {e}"
+                                )
+                            else:
+                                await conn.reply(rid, reply)
+                    elif msg_type == MsgType.DAG_TEARDOWN:
+                        if self._dag_runtime is None:
+                            await conn.reply(rid, {"ok": True, "absent": True})
+                        else:
+                            await conn.reply(
+                                rid, await self._dag_runtime.handle_teardown(payload)
+                            )
+                    elif msg_type == MsgType.ENGINE_STREAM:
+                        # the serve engine is not ported
                         await conn.reply(
-                            rid, {}, error="NotImplementedError: compiled actor DAGs and the "
-                            "serve engine are not ported yet (ROADMAP, Queue 1: the step DAG; the serve engine)",
+                            rid, {}, error="NotImplementedError: the serve engine is not "
+                            "ported yet (ROADMAP, Queue 1: the serve engine)",
                         )
             except (asyncio.IncompleteReadError, ConnectionError, OSError):
                 pass
+            finally:
+                # a dag dies with its driver conn: stop executors, release
+                # channels, return to eager-only service
+                if self._dag_runtime is not None:
+                    self._dag_runtime.on_conn_lost(conn)
 
         async def _start():
             server = await asyncio.start_server(_serve, "0.0.0.0", 0)

@@ -430,6 +430,8 @@ class HeadServer:
         self.object_meta: Dict[bytes, dict] = {}
         # freshest rolling stats per train run (TRAIN_STEP frames)
         self.train_stats: Dict[str, dict] = {}
+        # freshest DAG channel ring occupancy samples (DAG_STEP frames)
+        self.dag_channel_stats: Dict[str, dict] = {}
         # SLO watchdog: spec blob cache + one evaluator and verdict per slo
         self._slo_specs_blob: Optional[bytes] = None
         self._slo_specs: List[dict] = []
@@ -4207,8 +4209,8 @@ class HeadServer:
         """Fold one task-phase duration into the flight-recorder
         histograms (see _observe_hist for the write-through contract).
         Task records carry the grant path (head / cached_lease / raylet)
-        as a label so queue-wait splits by dispatch mode; the train plane
-        omits it."""
+        as a label so queue-wait splits by dispatch mode; the dag/serve/
+        train planes omit it."""
         from ray_tpu_torch._private import task_events
 
         tags = {"phase": phase, "name": name, "node": node_hex[:12]}
@@ -4333,7 +4335,7 @@ class HeadServer:
 
     def _summary_memory(self) -> dict:
         """Cluster memory accounting: per-node shm occupancy, the object
-        directory by state/owner, spill counters."""
+        directory by state/owner, spill counters, DAG ring occupancy."""
         nodes = {}
         for nid, node in self.nodes.items():
             stats = dict(node.store_stats)
@@ -4376,6 +4378,7 @@ class HeadServer:
                 "spilled": len(self.object_spilled),
                 "lineage": len(self.lineage),
             },
+            "dag_channels": {k: dict(v) for k, v in self.dag_channel_stats.items()},
         }
 
     def _summary_serve(self, limit: int = 0) -> dict:
@@ -4414,6 +4417,83 @@ class HeadServer:
             "slos": [dict(v) for v in self._slo_state.values()],
             "specs": [dict(s) for s in self._slo_specs],
         }
+
+    async def h_dag_step(self, cid, conn, p):
+        """A batch of compiled-DAG step flight records (fire-and-forget
+        DAG_STEP frame from dag/executor.py, sent only while task events
+        are on; the executor buffers ~16 steps per frame so the hot loop
+        never pays a head wakeup per step).  Compiled steps never transit
+        the scheduler, so these frames are their entire head-side
+        footprint: join each record into the flight-record ring, the
+        per-phase histograms, and the timeline — where h_timeline renders
+        per-node dag_channel_wait / dag_exec / dag_push sub-spans exactly
+        like the eager phases."""
+        from ray_tpu_torch._private import task_events
+
+        dag_id = str(p.get("dag_id", ""))
+        node_hex = bytes(p.get("node_id") or b"").hex()
+        for step in p.get("steps", []):
+            phases = {str(k): float(v) for k, v in (step.get("phases") or {}).items()}
+            if not phases:
+                continue
+            name = f"dag:{step.get('name', 'node')}"
+            step_id = f"{dag_id}:{int(step.get('seq', 0))}"
+            durs = task_events.durations(phases)
+            self.task_records.append(
+                {
+                    "task_id": step_id,
+                    "name": name,
+                    "node_id": node_hex,
+                    "pid": int(step.get("pid", 0)),
+                    "error": bool(step.get("error")),
+                    "trace": {},
+                    "phases": phases,
+                    "durations": durs,
+                }
+            )
+            for phase, dur in durs.items():
+                self._observe_phase(phase, name, node_hex, dur)
+            exec_start = phases.get("dag_exec_start", 0.0)
+            self.timeline.append(
+                {
+                    "name": name,
+                    "pid": int(step.get("pid", 0)),
+                    "ts": exec_start,
+                    "dur": max(0.0, phases.get("dag_exec_end", exec_start) - exec_start),
+                    "error": bool(step.get("error")),
+                    "trace": {},
+                    "phases": phases,
+                    "task_id": step_id,
+                }
+            )
+        # ring occupancy samples piggyback the step batch (sampled at
+        # flush time, ~16 steps apart — no extra frames on the hot loop)
+        now = time.time()
+        for ch in p.get("channels", []):
+            key = str(ch.get("c", ""))
+            if not key:
+                continue
+            stat = {
+                "occupancy": int(ch.get("occ", 0)),
+                "slots": int(ch.get("slots", 0)),
+                "dag_id": dag_id,
+                "ts": now,
+            }
+            self.dag_channel_stats[key] = stat
+            self._set_gauge(
+                "ray_tpu_torch_dag_channel_occupancy",
+                "Ring slots holding unconsumed steps (sampled per "
+                "DAG_STEP flush)",
+                {"channel": key},
+                stat["occupancy"],
+            )
+            self._set_gauge(
+                "ray_tpu_torch_dag_channel_slots",
+                "Ring capacity in slots",
+                {"channel": key},
+                stat["slots"],
+            )
+        return {}
 
     async def h_serve_trace(self, cid, conn, p):
         """A batch of serve request flight records (fire-and-forget
@@ -4854,14 +4934,14 @@ class HeadServer:
         ("arg-fetch", "arg_fetch_start", "arg_fetch_end"),
         ("exec", "exec_start", "exec_end"),
         ("put", "put_start", "put_end"),
-        # serve-request / train-step records come straight
+        # compiled-DAG / serve-request / train-step records come straight
         # from the canonical phase vocabulary, so a phase added there can
         # never silently miss the timeline — records without the stamps
         # skip them
     ) + tuple(
         (name, start, end)
         for name, (start, end) in _task_events.DURATIONS.items()
-        if name.startswith(("serve_", "train_"))
+        if name.startswith(("dag_", "serve_", "train_"))
     )
 
     async def h_timeline(self, cid, conn, p):
@@ -6045,7 +6125,31 @@ class HeadServer:
             except Exception:  # noqa: BLE001
                 logger.exception("workload observer tick failed")
 
+    # drop DAG channel samples this long after their last DAG_STEP flush:
+    # channel keys embed a per-compile random id and the head never sees
+    # DAG_TEARDOWN (it rides the direct-call conns), so without an age-out
+    # every compile would leak a stats entry + two gauge series forever
+    # and dead DAGs would scrape as live occupancy
+    _DAG_CHANNEL_TTL_S = 60.0
+
+    def _expire_dag_channel_stats(self):
+        from ray_tpu_torch.util import metrics as metrics_mod
+
+        now = time.time()
+        for key, stat in list(self.dag_channel_stats.items()):
+            if now - float(stat.get("ts", 0.0)) <= self._DAG_CHANNEL_TTL_S:
+                continue
+            self.dag_channel_stats.pop(key, None)
+            tag_str = metrics_mod.tag_string({"channel": key})
+            self.kv.pop(
+                f"metrics:ray_tpu_torch_dag_channel_occupancy:{tag_str}:head", None
+            )
+            self.kv.pop(
+                f"metrics:ray_tpu_torch_dag_channel_slots:{tag_str}:head", None
+            )
+
     def _refresh_memory_gauges(self):
+        self._expire_dag_channel_stats()
         for nid, node in self.nodes.items():
             if not node.alive:
                 continue
@@ -6266,6 +6370,7 @@ HeadServer._HANDLERS = {
     MsgType.LIST_TASKS: HeadServer.h_list_tasks,
     MsgType.TIMELINE: HeadServer.h_timeline,
     MsgType.TASK_SUMMARY: HeadServer.h_task_summary,
+    MsgType.DAG_STEP: HeadServer.h_dag_step,
     MsgType.SERVE_TRACE: HeadServer.h_serve_trace,
     MsgType.TRAIN_STEP: HeadServer.h_train_step,
     MsgType.LEASE_REQUEST: HeadServer.h_lease_request,

@@ -7,16 +7,22 @@ on every parameter), and metrics {"loss", "grad_norm"} with the norm taken
 before clipping.  PyTorch updates the module in place; `step` returns it so
 that callers read the same as with the JAX bundle.  A mesh (dp/fsdp/tp) is
 a later slice of the port.
+
+`make_lm_step_spec` and its stage functions (`_lm_build` … `_lm_restore`)
+port the JAX module's step spec: the run that the eager per-step path and
+the resident step DAG (train/torch/step_dag.py) both drive, in float32
+compute with plain Adam.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ray_tpu_torch._device import Device, resolve_device
-from ray_tpu_torch.models.gpt2 import GPT2Model
+from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 
 
 class TrainStepBundle(NamedTuple):
@@ -75,3 +81,150 @@ def synthetic_batch(
     tokens = torch.randint(0, vocab, (batch, seq + 1), generator=generator, device=generator.device)
     tokens = tokens.to(dev)
     return tokens[:, :-1], tokens[:, 1:]
+
+
+# ---------------------------------------------------------------- step spec
+
+
+def _lm_build(config, rank, world):
+    """Worker-side build for the LM TrainStepSpec: the model in float32
+    compute and plain Adam (optax.adam's formula and defaults: b1 0.9, b2
+    0.999, eps 1e-8), params device-resident from here on.  Same init seed
+    on every rank (the DP contract)."""
+    dev = resolve_device(config["device"])
+    cfg = getattr(GPT2Config, config["model"])(compute_dtype=torch.float32)
+    model = GPT2Model(cfg, device=dev, seed=int(config["init_seed"]))
+    opt = torch.optim.Adam(model.parameters(), lr=float(config["lr"]), betas=(0.9, 0.999), eps=1e-8)
+    return {
+        "cfg": cfg,
+        "model": model,
+        "opt": opt,
+        "device": dev,
+        "rank": rank,
+        "world": world,
+        "batch": int(config["batch"]),
+        "seq": int(config["seq"]),
+        "sync_grads": bool(config["sync_grads"]),
+        "data_seed": int(config["data_seed"]),
+        "group": str(config.get("collective_group", "_train_dp")),
+    }
+
+
+def _lm_data(state, idx):
+    """Deterministic in (rank, step_idx), drawn on the host: checkpoint-
+    resume replays the exact stream, which is what makes resumed weights
+    bit-identical.  `_lm_h2d` moves the batch to the device."""
+    gen = torch.Generator().manual_seed(state["data_seed"] + idx * 1000 + state["rank"])
+    return synthetic_batch(gen, state["batch"], state["seq"], state["cfg"].vocab_size, device="cpu")
+
+
+def _lm_h2d(state, batch):
+    return tuple(t.to(state["device"]) for t in batch)
+
+
+def _lm_step(state, batch):
+    tokens, targets = batch
+    model, opt = state["model"], state["opt"]
+    opt.zero_grad(set_to_none=True)
+    loss = model.loss(tokens, targets)
+    loss.backward()
+    if state["world"] > 1 and state["sync_grads"]:
+        from ray_tpu_torch.train.torch.train_loop_utils import all_reduce_tensors
+
+        params = [p for p in model.parameters() if p.grad is not None]
+        reduced = all_reduce_tensors([p.grad for p in params], state["world"], group_name=state["group"])
+        for p, g in zip(params, reduced):
+            p.grad = g
+    opt.step()
+    return {"loss": loss.detach()}
+
+
+def _lm_fold(state, metrics):
+    return {"loss": float(metrics["loss"])}
+
+
+def _lm_snapshot(state):
+    """Params and Adam state as host numpy, keyed by parameter name; the
+    Adam step count as optax's `count`."""
+    model, opt = state["model"], state["opt"]
+    named = list(model.named_parameters())
+    per = [opt.state.get(p, {}) for _, p in named]
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "params": {n: host(p) for n, p in named},
+        "opt_state": {
+            "count": np.asarray(int(per[0]["step"]) if per[0] else 0, dtype=np.int32),
+            "mu": {n: host(s["exp_avg"]) for (n, _), s in zip(named, per) if s},
+            "nu": {n: host(s["exp_avg_sq"]) for (n, _), s in zip(named, per) if s},
+        },
+    }
+
+
+@torch.no_grad()
+def _lm_restore(state, snap):
+    model, opt = state["model"], state["opt"]
+    dev = state["device"]
+    count = int(snap["opt_state"]["count"])
+    for name, p in model.named_parameters():
+        p.copy_(torch.from_numpy(np.asarray(snap["params"][name])))
+        if count:
+            opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.from_numpy(np.array(snap["opt_state"]["mu"][name])).to(dev),
+                "exp_avg_sq": torch.from_numpy(np.array(snap["opt_state"]["nu"][name])).to(dev),
+            }
+
+
+def make_lm_step_spec(
+    model: str = "tiny",
+    *,
+    batch: int = 4,
+    seq: Optional[int] = None,
+    steps: int = 10,
+    learning_rate: float = 1e-2,
+    checkpoint_every: int = 0,
+    sync_grads: bool = True,
+    init_seed: int = 0,
+    data_seed: int = 1,
+    collective_group: str = "_train_dp",
+    name: str = "lm_train_dag",
+    device: Device = "cuda",
+):
+    """A GPT-2 training run as a ``TrainStepSpec`` (train/torch/step_dag.py):
+    the SAME stage functions drive both the eager per-step path and the
+    gang-scheduled resident DAG, so eager-vs-dag weight equality is a
+    property of the system, not the workload.  ``device`` is where each
+    worker trains: the card unless the caller asks for "cpu"."""
+    from ray_tpu_torch.train.torch.step_dag import TrainStepSpec
+
+    cfg = getattr(GPT2Config, model)()
+    seq = seq or cfg.block_size
+    return TrainStepSpec(
+        build=_lm_build,
+        data=_lm_data,
+        step=_lm_step,
+        fold=_lm_fold,
+        h2d=_lm_h2d,
+        snapshot=_lm_snapshot,
+        restore=_lm_restore,
+        steps=steps,
+        checkpoint_every=checkpoint_every,
+        config={
+            "model": model,
+            "batch": batch,
+            "seq": seq,
+            "lr": learning_rate,
+            "sync_grads": sync_grads,
+            "init_seed": init_seed,
+            "data_seed": data_seed,
+            # must match TorchConfig.group_name (default TRAIN_GROUP): the
+            # step stage reduces on this group, the backend creates it
+            "collective_group": collective_group,
+            "device": str(device),
+        },
+        name=name,
+        flops_per_step=cfg.flops_per_token() * batch * seq,
+    )

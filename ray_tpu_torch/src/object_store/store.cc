@@ -8,8 +8,11 @@
 // and operates on it directly under a process-shared robust mutex — on a
 // TPU-VM host all workers are local, so the socket hop is pure overhead.
 // Create/seal/get/release/delete + LRU eviction of unpinned sealed objects
-// match plasma semantics; sealed buffers are immutable and consumable
-// zero-copy (numpy/jax via dlpack from the mapped pages).
+// match plasma semantics, deferred delete included: deleting a sealed object
+// that a reader still pins only marks it delete-pending, and the release
+// that drops the last pin frees the block.  Sealed buffers are immutable
+// and consumable zero-copy (numpy arrays and CPU tensors over the mapped
+// pages).
 //
 // Layout of the segment:
 //   [Header][Slot * nslots][FreeBlock * MAX_FREE][data region ...]
@@ -39,6 +42,12 @@ enum SlotState : uint32_t {
   ALLOCATED = 1,  // created, not yet sealed
   SEALED = 2,
   TOMBSTONE = 3,
+  // deleted while pinned: invisible to get/contains/create like a
+  // tombstone, but its block stays allocated (and counted in used and
+  // num_objects) until the last pin is released.  A reader process that
+  // dies holding a pin never releases it, so its block leaks until the
+  // segment goes.
+  DELETE_PENDING = 4,
 };
 
 struct Slot {
@@ -105,7 +114,9 @@ class Locker {
   Header* h_;
 };
 
-// Find slot for id, or an insertion slot if insert==true.
+// Find the live slot for id, or an insertion slot if insert==true.
+// Delete-pending slots are skipped in both modes: their id is dead to every
+// caller but the pin holders, who release through find_pinned.
 Slot* find_slot(Store* s, const uint8_t* id, bool insert) {
   uint64_t n = s->hdr->nslots;
   uint64_t i = hash_id(id) % n;
@@ -120,9 +131,30 @@ Slot* find_slot(Store* s, const uint8_t* id, bool insert) {
       if (insert && !first_tomb) first_tomb = sl;
       continue;
     }
+    if (sl->state == DELETE_PENDING) continue;
     if (memcmp(sl->id, id, kIdLen) == 0) return sl;
   }
   return insert ? first_tomb : nullptr;
+}
+
+uint64_t segment_offset(Store* s, const Slot* sl) {
+  return (uint64_t)(s->data - (uint8_t*)s->base) + sl->offset;
+}
+
+// The slot a pin was taken on: same id and same block.  A live object and a
+// delete-pending one may share an id (the id was re-created after the
+// delete), so the id alone cannot say which one a release belongs to; the
+// block can, because a pending block is never handed out again.
+Slot* find_pinned(Store* s, const uint8_t* id, uint64_t seg_off) {
+  uint64_t n = s->hdr->nslots;
+  uint64_t i = hash_id(id) % n;
+  for (uint64_t probe = 0; probe < n; probe++, i = (i + 1) % n) {
+    Slot* sl = &s->slots[i];
+    if (sl->state == EMPTY) return nullptr;
+    if (sl->state == TOMBSTONE) continue;
+    if (memcmp(sl->id, id, kIdLen) == 0 && segment_offset(s, sl) == seg_off) return sl;
+  }
+  return nullptr;
 }
 
 // First-fit allocate from the free list; returns UINT64_MAX on failure.
@@ -172,6 +204,12 @@ void free_block(Store* s, uint64_t offset, uint64_t size) {
     s->freelist[h->nfree++] = FreeBlock{offset, size};
   }
   // else: leak the block (bounded by kMaxFree fragmentation; extremely rare)
+}
+
+void free_slot(Store* s, Slot* sl) {
+  free_block(s, sl->offset, align_up(sl->size));
+  sl->state = TOMBSTONE;
+  s->hdr->num_objects--;
 }
 
 // Evict the least-recently-used sealed, unpinned object.  Returns freed bytes.
@@ -295,12 +333,12 @@ int store_alloc_opts(void* sp, const uint8_t* id, uint64_t size, int allow_evict
   }
   memcpy(sl->id, id, kIdLen);
   sl->state = ALLOCATED;
-  sl->refcount = 1;  // creator holds a pin until seal+release
+  sl->refcount = 1;  // creator holds a pin until seal
   sl->offset = off;
   sl->size = size;
   sl->lru_tick = ++s->hdr->lru_clock;
   s->hdr->num_objects++;
-  *out_offset = (uint64_t)(s->data - (uint8_t*)s->base) + off;
+  *out_offset = segment_offset(s, sl);
   return 0;
 }
 
@@ -336,12 +374,15 @@ int store_evict_candidates(void* sp, uint64_t max_n, uint8_t* out_ids,
   return (int)n;
 }
 
+// Seal and drop the creator's pin in one locked step, so that no delete can
+// fall between the two and leave the creator a pin it cannot name.
 int store_seal(void* sp, const uint8_t* id) {
   Store* s = (Store*)sp;
   Locker lock(s->hdr);
   Slot* sl = find_slot(s, id, false);
   if (!sl || sl->state != ALLOCATED) return -1;
   sl->state = SEALED;
+  if (sl->refcount > 0) sl->refcount--;
   return 0;
 }
 
@@ -354,17 +395,21 @@ int store_get(void* sp, const uint8_t* id, uint64_t* out_offset, uint64_t* out_s
   if (sl->state != SEALED) return -3;
   sl->refcount++;
   sl->lru_tick = ++s->hdr->lru_clock;
-  *out_offset = (uint64_t)(s->data - (uint8_t*)s->base) + sl->offset;
+  *out_offset = segment_offset(s, sl);
   *out_size = sl->size;
   return 0;
 }
 
-int store_release(void* sp, const uint8_t* id) {
+// Drop one pin taken by alloc or get; `seg_off` is the offset that call
+// returned.  The release that drops the last pin of a delete-pending object
+// frees it (plasma's deferred delete).  -1 missing.
+int store_release(void* sp, const uint8_t* id, uint64_t seg_off) {
   Store* s = (Store*)sp;
   Locker lock(s->hdr);
-  Slot* sl = find_slot(s, id, false);
-  if (!sl || sl->state == TOMBSTONE) return -1;
+  Slot* sl = find_pinned(s, id, seg_off);
+  if (!sl) return -1;
   if (sl->refcount > 0) sl->refcount--;
+  if (sl->state == DELETE_PENDING && sl->refcount == 0) free_slot(s, sl);
   return 0;
 }
 
@@ -375,16 +420,19 @@ int store_contains(void* sp, const uint8_t* id) {
   return (sl && sl->state == SEALED) ? 1 : 0;
 }
 
-// Delete regardless of pins (caller must know it is safe) — used by the
-// owner-driven free path.  -1 missing.
+// The owner-driven free (the head's and the raylets' deletes).  A sealed
+// object that a reader still pins becomes delete-pending and is freed by its
+// last release, so a zero-copy view never outlives its block.  -1 missing.
 int store_delete(void* sp, const uint8_t* id) {
   Store* s = (Store*)sp;
   Locker lock(s->hdr);
   Slot* sl = find_slot(s, id, false);
   if (!sl || sl->state == TOMBSTONE) return -1;
-  free_block(s, sl->offset, align_up(sl->size));
-  sl->state = TOMBSTONE;
-  s->hdr->num_objects--;
+  if (sl->state == SEALED && sl->refcount > 0) {
+    sl->state = DELETE_PENDING;
+    return 0;
+  }
+  free_slot(s, sl);
   return 0;
 }
 
@@ -397,9 +445,7 @@ int store_delete_if_unpinned(void* sp, const uint8_t* id) {
   Slot* sl = find_slot(s, id, false);
   if (!sl || sl->state == TOMBSTONE) return -1;
   if (sl->refcount > 0) return -2;
-  free_block(s, sl->offset, align_up(sl->size));
-  sl->state = TOMBSTONE;
-  s->hdr->num_objects--;
+  free_slot(s, sl);
   return 0;
 }
 
@@ -409,9 +455,7 @@ int store_abort(void* sp, const uint8_t* id) {
   Locker lock(s->hdr);
   Slot* sl = find_slot(s, id, false);
   if (!sl || sl->state != ALLOCATED) return -1;
-  free_block(s, sl->offset, align_up(sl->size));
-  sl->state = TOMBSTONE;
-  s->hdr->num_objects--;
+  free_slot(s, sl);
   return 0;
 }
 

@@ -20,10 +20,58 @@ class TrainWorker:
         self.world_rank = world_rank
         self.world_size = world_size
         self.session = None
+        self._train_dag = None  # _WorkerTrainState (train/torch/step_dag.py)
         self._env: Dict[str, Any] = {}
 
     def execute(self, fn, *args, **kwargs):
         return fn(self, *args, **kwargs)
+
+    # -- resident train-step DAG (ray_tpu_torch/train/torch/step_dag.py) --
+    # dag_shard / dag_step / dag_fold are the compiled-DAG stage methods
+    # (bound via actor.method.bind at compile); dag_tick is the preserved
+    # eager path over the same stage functions; build/snapshot/finish are
+    # eager control calls.  All logic lives in step_dag — these are the
+    # bindable actor-method surface.
+
+    def dag_train_build(self, spec, checkpoint, start_step):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_build(self, spec, checkpoint, start_step)
+
+    def dag_shard(self, idx):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_shard(self, idx)
+
+    def dag_step(self, idx):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_step(self, idx)
+
+    def dag_fold(self, idx):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_fold(self, idx)
+
+    def dag_tick(self, idx):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_tick(self, idx)
+
+    def dag_train_snapshot(self):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_snapshot(self)
+
+    def dag_train_finish(self):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_finish(self)
+
+    def dag_train_records(self):
+        from ray_tpu_torch.train.torch import step_dag
+
+        return step_dag.worker_records(self)
 
     def set_env(self, **kv):
         self._env.update(kv)

@@ -49,7 +49,7 @@ class DataParallelTrainer(BaseTrainer):
         train_loop_per_worker: Optional[Callable] = None,
         *,
         train_loop_config: Optional[Dict[str, Any]] = None,
-        train_step_spec=None,  # TrainStepSpec: not ported yet (the step DAG)
+        train_step_spec=None,  # TrainStepSpec (train/torch/step_dag.py)
         backend_config: Optional[BackendConfig] = None,
         scaling_config: Optional[ScalingConfig] = None,
         run_config: Optional[RunConfig] = None,
@@ -74,12 +74,13 @@ class DataParallelTrainer(BaseTrainer):
         self.datasets = datasets or {}
 
     def fit(self) -> Result:
-        if self.train_step_spec is not None:
-            raise NotImplementedError(
-                "train_step_spec (the resident step DAG) is not ported yet "
-                "(ROADMAP, Queue 1: the step DAG); pass train_loop_per_worker"
-            )
         self._check_placeable()
+        if self.train_step_spec is not None:
+            # spec-driven training owns its own gang-granular restart loop
+            # (checkpoint-respawn at exact step boundaries)
+            from ray_tpu_torch.train.torch.step_dag import fit_spec
+
+            return fit_spec(self)
         max_failures = self.run_config.failure_config.max_failures
         attempt = 0
         latest_checkpoint: Optional[Checkpoint] = self.resume_from_checkpoint

@@ -48,6 +48,13 @@ def _leave_collective(worker, group_name):
 class TorchConfig(BackendConfig):
     collective_backend: str = "dcn"  # cross-actor grad reduction transport
     group_name: str = TRAIN_GROUP
+    # Drive a TrainStepSpec through the gang-scheduled resident DAG loop
+    # (train/torch/step_dag.py): per-step driver cost is one channel write,
+    # host input pipelines double-buffer against device compute.  False
+    # keeps the eager per-step actor-call path over the SAME spec
+    # functions (the bit-identical reference).  Ignored for classic
+    # train_loop_per_worker trainers.
+    use_step_dag: bool = False
 
     def backend_cls(self):
         return _TorchBackend

@@ -169,3 +169,22 @@ def test_leftover_counts_only_what_the_phase_left(monkeypatch):
     finally:
         old.kill()
         old.wait(timeout=10)
+
+
+def test_step_dag_phase_rehearsal(monkeypatch, capsys):
+    """Phase (h) on the CPU at the `tiny` config: a cluster counting one
+    logical GPU, the eager fit and the DAG fit each in a GPU worker on the
+    CPU, the checks and the process scan after shutdown.  On the CPU the two
+    runs agree bit for bit in every loss and weight; no kernel launches, so
+    exactly the launch checks fail."""
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_GPUS", "1")
+    runs = cs.step_dag_phase("cpu", "cpu", model="tiny", batch=2, seq=None, device="cpu")
+    eager, dag = runs["eager"], runs["dag"]
+    assert len(eager["losses"]) == len(dag["losses"]) == cs.STEP_DAG_STEPS
+    assert eager["losses"] == dag["losses"]
+    pe, pd = eager["snap"]["lm"]["params"], dag["snap"]["lm"]["params"]
+    assert all((pe[n] == pd[n]).all() for n in pd)
+    assert eager["ms_per_step"] > 0 and dag["ms_per_step"] > 0
+    assert cs.FAILED == [f"step DAG (h) {name} launches all on the wmma kernels" for name in ("eager", "dag")], cs.FAILED
+    capsys.readouterr()

@@ -149,3 +149,34 @@ print("torch" in sys.modules)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+STEP_DAG_MODULES = (
+    "ray_tpu_torch.dag",
+    "ray_tpu_torch.dag.node",
+    "ray_tpu_torch.dag.channel",
+    "ray_tpu_torch.dag.executor",
+    "ray_tpu_torch.dag.compiled",
+    "ray_tpu_torch.train.torch.step_dag",
+)
+
+
+def test_step_dag_modules_stand_alone():
+    """The compiled DAGs and the step DAG are among the sources scanned
+    above, and importing them, as a worker does on its first DAG_SETUP and
+    a driver on compile, loads no jax or ray_tpu module (the JAX package's
+    executor imports that package's analyzer, graftsan; the port's does
+    not)."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in STEP_DAG_MODULES:
+        assert str(_port_file(mod).relative_to(ROOT)) in scanned, mod
+    code = f"""
+import importlib, sys
+for m in {STEP_DAG_MODULES!r}:
+    importlib.import_module(m)
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -309,8 +309,14 @@ def test_default_use_gpu_without_a_gpu_raises_at_once(cluster):
 
 
 def test_cut_entry_points_raise(cluster):
-    with pytest.raises(NotImplementedError, match="step DAG"):
-        TorchTrainer(train_step_spec=object()).fit()
+    # the step DAG is ported: a spec reaches fit_spec, which checks it
+    from ray_tpu_torch.models.lm_train import make_lm_step_spec
+
+    with pytest.raises(ValueError, match="steps must be positive"):
+        TorchTrainer(
+            train_step_spec=make_lm_step_spec(steps=0, device="cpu"),
+            scaling_config=ScalingConfig(use_gpu=False),
+        ).fit()
     with pytest.raises(NotImplementedError, match="Tune"):
         TorchTrainer(_noop_loop).as_trainable()
     from ray_tpu_torch.train.torch import local_mesh
