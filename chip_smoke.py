@@ -7,21 +7,25 @@ Phases:
   1. the device: name, power limit; TF32 off for the references.
   2. build the CUDA kernels from ray_tpu_torch/ops/csrc (first use), one
      nvcc per source, all at once; print each kernel's registers and spills
-     (ptxas), fail if an sm90 kernel spills, and print the shared memory
-     and CTAs per SM of the four sm90 kernels and of the wmma kernels at
-     bf16 D=128.
+     (ptxas), fail if an sm90 kernel (the float32 ones included) spills,
+     and print the shared memory and CTAs per SM of the sm90 kernels (the
+     float32 ones at D=64 and 128) and of the wmma kernels at bf16 D=128.
   3. kernels: the causal-attention forwards and fused backwards (for bf16
      attention_fwd_sm90.cu / attention_bwd_sm90.cu at D=64 and
      attention_fwd_sm90_d128.cu / attention_bwd_sm90_d128.cu at D=128, for
-     float32 causal_attention.cu's attn_fwd_kernel / attn_bwd_kernel, the
-     "wmma" route), through impl="splash" and impl="flash", held against
+     float32 attention_fwd_sm90_f32.cu / attention_bwd_sm90_f32.cu, the
+     "sm90_f32" route, also launched directly at F32_CHECK_SHAPES;
+     causal_attention.cu's WMMA kernels are on no route, the in-run
+     yardstick), through impl="splash" and impl="flash", held against
      the plain PyTorch version on the same inputs, at the main path's shape
      (strided q/k/v views of one QKV tensor), at D=128, at a ragged S, with
      q, k, v as head-major views at both head dims, and with float32
      inputs, each checked to have taken the forward and the backward that
      the routing tables name; the sm90_d128 and wmma kernels launched
      directly on the same D=128 inputs, and at the main path's shape the
-     D=64 ones; then the D=64 kernels timed at GPT-2 124M's shape beside
+     D=64 ones; every routed backward run twice on the same inputs, its dq,
+     dk and dv required byte-equal (dq is added in the order of the key
+     tiles); then the D=64 kernels timed at GPT-2 124M's shape beside
      the plain version and torch.nn.functional.scaled_dot_product_attention
      (timing only).
   4. the slice: GPT-2 124M training through make_train_step.  (a) one step
@@ -52,7 +56,8 @@ Phases:
      B=1 S=2048 (LlamaConfig's default max_seq_len): the route checked,
      both launched directly and checked against the plain version, then
      timed beside it and SDPA; the sm90_d128 kernels must beat the wmma
-     ones.  Then the model on one S=256 prompt: apply
+     ones in device time, by CUDA-graph replay of 20 launches (single
+     launches at S=256 time the host).  Then the model on one S=256 prompt: apply
      with the kernels, apply with the plain attention in bf16 and in f32
      (the reference), and the prefill path (the teacher-forced loop of
      decode_step) in bf16 and f32; apply's launches (32 forwards, all
@@ -77,28 +82,30 @@ Phases:
      printed); summarize_workloads("serve") holds TTFT and TPOT; no process
      of the cluster is left after serve.shutdown() and shutdown().  Every
      cluster call carries a timeout.
-  8. (h) the step DAG: first the float32 kernels (the wmma route, which
-     float32 compute takes) at the attention of GPT-2 124M at batch 4, B=4
-     S=1024 H=12 D=64: routed and launched directly, checked against the
-     float32 plain version, timed beside it and float32 SDPA against the
-     float32 bound (FP32 peak, 4 bytes an element).  Then ray_tpu_torch.init
+  8. (h) the step DAG: first the float32 kernels (the sm90_f32 route,
+     which float32 compute takes, and the wmma yardstick) at the attention
+     of GPT-2 124M at batch 4, B=4 S=1024 H=12 D=64: routed and launched
+     directly, checked against the float32 plain version, timed beside it
+     and float32 SDPA, each against its bound (4 bytes an element; sm90_f32
+     at 3xTF32 on the tensor cores, 494.7/3 TFLOP/s; wmma at the 67 TFLOP/s
+     FP32 peak).  Then ray_tpu_torch.init
      and TorchTrainer(train_step_spec=make_lm_step_spec("gpt2_124m",
      batch=4, seq=1024, steps=12, checkpoint_every=6, learning_rate=3e-4))
      fit twice on one cluster: the eager per-step path, then
      TorchConfig(use_step_dag=True), the resident compiled DAG (dag_shard
      -> dag_step -> dag_fold on the GPU worker actor, gang-armed).  Adam at
      3e-4: at the spec's default 1e-2 GPT-2 124M diverges.  The spec's
-     build zeroes the worker's launch
-     counters and its final snapshot (an eager call at the drained step-12
+     build makes the step deterministic on the card (torch's deterministic
+     algorithms, a fixed cuBLAS workspace) and zeroes the worker's launch
+     counters; its final snapshot (an eager call at the drained step-12
      boundary) reads them.  Checked for each run: the worker is another
-     process on this card with no jax or ray_tpu module; 12 x 24 forward and
-     12 x 12 backward launches, all wmma; the checkpoint at step 12 with
+     process on this card with no jax or ray_tpu module; it ran under
+     torch's deterministic algorithms; 12 x 24 forward and 12 x 12 backward
+     launches, all sm90_f32; the checkpoint at step 12 with
      Adam's count 12; losses finite (each step draws a fresh batch of random
-     tokens, so the loss need not fall).  Across the runs: the first
-     loss bit-equal (the forward has no atomics), every loss within 1e-3
-     relative and the final weights within 1e-3 of each leaf's norm (the
-     backward's dq sums by atomicAdd; the key third of each qkv bias, whose
-     gradient is zero in exact arithmetic, within 2 x steps x lr); the eager
+     tokens, so the loss need not fall).  Across the runs: every loss
+     bit-equal and the final weights byte-equal (the step is deterministic,
+     as the reference's is: dq is added in a fixed order); the eager
      checkpoint's numpy leaves byte for byte as they were after its fit,
      read again after the DAG run put its own (their store blocks were
      freed by their owner meanwhile, and stay until the views go); no
@@ -107,9 +114,10 @@ Phases:
 Each phase prints its wall seconds.  Then one JSON line on the kernels (the
 D=64 kernels' launches from (b), error and times from phase 3; the
 sm90_d128 kernels' launches from (f), error and times at the prefill shape
-with the long shape's beside; the wmma kernels' launches from (h), their
-D=128 error and times from direct launches, with (h)'s float32 ones beside)
-and, last, {"ok": true, "device": ...}.
+with the long shape's beside; the sm90_f32 kernels' launches from (h),
+error and times at its attention; the wmma kernels, on no route, no
+launches, their D=128 error and times from direct launches, with (h)'s
+float32 ones beside) and, last, {"ok": true, "device": ...}.
 Any failed check makes the script exit 1 without that last line, and an
 exception in any phase ends it with a traceback.  It exits 2 when no CUDA
 device is present.
@@ -119,7 +127,8 @@ max |error| against the float32 reference may be at most twice the plain
 version's run in bf16 on the same inputs, plus 1e-3.  Both round P and O to
 bf16, at different points; dq's atomic f32 sums also vary in order from run
 to run.  lse is f32 from the same bf16 products: 1e-4 absolute.  float32
-inputs: 1e-4 absolute everywhere (same arithmetic, other summation order).
+inputs: 1e-4 absolute everywhere (3xTF32 keeps float32's accuracy to about
+2**-21 of each product; other summation order).
 Slice (a): loss within 1e-3 and grad_norm within 1e-2 relative; kernel and
 plain attention differ by at most about one bf16 rounding per element, which
 the loss averages over 2048 tokens and the norm over 124M gradients.  (f)'s
@@ -150,6 +159,11 @@ import torch
 
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 FP32_PEAK_FLOPS = 67e12  # H100 SXM FP32 peak without tensor cores (NVIDIA data sheet)
+TF32_PEAK_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
+# float32 products as 3xTF32 (three TF32 products each): the sm90_f32
+# kernels' bound.  They issue mma.sync, whose own TF32 ceiling is lower and
+# not measured here, so no share against this bound can exceed 100%.
+F32_3XTF32_PEAK_FLOPS = TF32_PEAK_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SLICE_ATTN = (18, 1024, 12, 64)  # GPT-2 124M at bench batch 18: B, S, H, D
 CHECK_SHAPES = [  # B, S, H, D
@@ -162,12 +176,14 @@ F32_CHECK_SHAPES = [(1, 300, 4, 64), (1, 200, 2, 128)]
 D128_PATH = (1, 1024, 24, 128)  # B, S, H, D of path (d)
 TPU_KERNELS = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 SOURCES = ("causal_attention", "attention_fwd_sm90", "attention_bwd_sm90",  # under ray_tpu_torch/ops/csrc/
-           "attention_fwd_sm90_d128", "attention_bwd_sm90_d128")
-ROUTES = ("sm90", "sm90_d128", "wmma")
+           "attention_fwd_sm90_d128", "attention_bwd_sm90_d128", "attention_fwd_sm90_f32", "attention_bwd_sm90_f32")
+ROUTES = ("sm90", "sm90_d128", "sm90_f32", "wmma")  # wmma: on no route, the in-run yardstick
 FWD_COUNTERS = {r: f"causal_attention_fwd_{r}" for r in ROUTES}
 BWD_COUNTERS = {r: f"causal_attention_bwd_{r}" for r in ROUTES}
 COUNTERS = (*FWD_COUNTERS.values(), *BWD_COUNTERS.values())
 D128_ROUTES = ("sm90_d128", "wmma")  # the head-dim-128 kernel and its in-run yardstick, launched directly
+F32_ROUTES = ("sm90_f32", "wmma")  # the float32 kernels and the same yardstick, launched directly
+DETERMINISM_SHAPES = {"sm90": (4, 1024, 12, 64), "sm90_d128": (1, 2048, 32, 128), "sm90_f32": (4, 1024, 12, 64)}
 
 FAILED = []
 
@@ -309,13 +325,39 @@ def kernel_phase(att):
     check_route(att, taken, torch.bfloat16, D, f"bf16 B={B} S={S} H={H} D={D} impl=auto")
     max_err = check_direct(direct_err, ep, f"B={B} S={S} H={H} D={D}")
     check_errors(f"B={B} S={S} H={H} D={D} impl=auto", ek, ep)
-    att.reset_launch_counts()
     for B, S, H, D in F32_CHECK_SHAPES:
-        ek, _, taken, _ = attention_errors(att, B, S, H, D, torch.float32, "splash", seed=5)
+        ek, _, taken, direct_err = attention_errors(att, B, S, H, D, torch.float32, "splash", seed=5, direct=True,
+                                                    routes=("sm90_f32",))
         check_route(att, taken, torch.float32, D, f"f32 B={B} S={S} H={H} D={D}")
         for n, e in ek.items():
             check(f"f32 {n} B={B} S={S} H={H} D={D}", e <= 1e-4, f"{e:.3e} tol 1e-4")
-    return max_err, dict(att.LAUNCHES)
+        for c, errs in direct_err.items():
+            for n, e in errs.items():
+                check(f"f32 {n} B={B} S={S} H={H} D={D} {c}", e <= 1e-4, f"{e:.3e} tol 1e-4")
+    return max_err
+
+
+def determinism_phase(att):
+    """Each routed backward twice on the same inputs: dq, dk and dv must be
+    byte-equal, since every backward adds dq in the order of the key tiles
+    (the reference's runs are bit-identical).  The wmma yardstick, whose dq
+    sums by atomics in no fixed order, is run the same way for contrast."""
+    for route, (B, S, H, D) in (*DETERMINISM_SHAPES.items(), ("wmma", DETERMINISM_SHAPES["sm90_f32"])):
+        dtype = torch.bfloat16 if route in ("sm90", "sm90_d128") else torch.float32
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        q, k, v = qkv_views(B, S, H, D, dtype, gen)
+        do = torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
+        qs = (q * torch.tensor(D**-0.5, dtype=dtype)).contiguous()
+        o, lse = att._launch_fwd(route, qs, k, v)
+        first = att._launch_bwd(route, qs, k, v, o, lse, do)
+        second = att._launch_bwd(route, qs, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        differ = {n: int((a.view(torch.uint8) != b.view(torch.uint8)).sum()) for n, a, b in zip(("dq", "dk", "dv"), first, second)}
+        what = f"{route} backward twice, {str(dtype)[6:]} B={B} S={S} H={H} D={D}"
+        if route == "wmma":
+            print(f"determinism {what} (yardstick, atomics): bytes differing {differ}", flush=True)
+        else:
+            check(f"determinism {what}: dq, dk, dv byte-equal", not any(differ.values()), f"bytes differing {differ}")
 
 
 def attention_bounds(B, S, H, D, elem=2, peak=BF16_PEAK_FLOPS):
@@ -344,12 +386,47 @@ def attention_flops(B, S, H, D, products=2):
     return 2 * products * D * B * H * S * (S + 1) / 2
 
 
+def route_peak(route, dtype):
+    """The peak FLOP/s of the units a kernel runs its products on: bf16
+    tensor cores; for float32, 3xTF32 on the tensor cores (sm90_f32) or the
+    FP32 CUDA cores (the wmma kernels' float32 path)."""
+    if dtype != torch.float32:
+        return BF16_PEAK_FLOPS
+    return F32_3XTF32_PEAK_FLOPS if route == "sm90_f32" else FP32_PEAK_FLOPS
+
+
+def graph_ms(fn, launches=20, replays=10):
+    """Device ms of one call of `fn`: `launches` calls captured in one CUDA
+    graph and replayed `replays` times between two events, so that the
+    host's launch rate, which bounds a small shape's event timing, does not
+    enter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
 def timing_phase(att, shape=SLICE_ATTN, routes=("sm90", "wmma"), dtype=torch.bfloat16):
     """Kernel, plain-version and SDPA times (ms) of the forward and backward
-    kernels of `routes` at `shape` (B, S, H, D) in `dtype`, and their
-    bounds (float32: against the FP32 peak at 4 bytes an element)."""
+    kernels of `routes` at `shape` (B, S, H, D) in `dtype`, and each
+    kernel's bound (at the peak of the units it runs on, `route_peak`; 4
+    bytes an element for float32)."""
     B, S, H, D = shape
-    peak = FP32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
     fwd_counters = {r: FWD_COUNTERS[r] for r in routes}
     bwd_counters = {r: BWD_COUNTERS[r] for r in routes}
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -375,9 +452,12 @@ def timing_phase(att, shape=SLICE_ATTN, routes=("sm90", "wmma"), dtype=torch.bfl
     library = {c: lib_fwd for c in fwd_counters.values()}
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), ldo, retain_graph=True))
     library.update(dict.fromkeys(bwd_counters.values(), lib_bwd))
-    bound = attention_bounds(B, S, H, D, elem=dtype.itemsize, peak=peak)
-    bounds = {c: bound["causal_attention_fwd"] for c in fwd_counters.values()}
-    bounds.update(dict.fromkeys(bwd_counters.values(), bound["causal_attention_bwd"]))
+    bounds, peaks = {}, {}
+    for r in routes:
+        peaks[FWD_COUNTERS[r]] = peaks[BWD_COUNTERS[r]] = route_peak(r, dtype)
+        bound = attention_bounds(B, S, H, D, elem=dtype.itemsize, peak=peaks[FWD_COUNTERS[r]])
+        bounds[FWD_COUNTERS[r]] = bound["causal_attention_fwd"]
+        bounds[BWD_COUNTERS[r]] = bound["causal_attention_bwd"]
     for name in times:
         print(f"time {name} {str(dtype)[6:]} B={B} S={S} H={H} D={D}: kernel {times[name]:.4f} ms, plain {plain[name]:.4f} ms, "
               f"sdpa {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
@@ -385,7 +465,7 @@ def timing_phase(att, shape=SLICE_ATTN, routes=("sm90", "wmma"), dtype=torch.bfl
     for c in times:
         flops = attention_flops(B, S, H, D, products=2 if c in fwd_counters.values() else 5)
         print(f"rate {c} {str(dtype)[6:]}: {flops / times[c] / 1e9:.1f} TFLOP/s "
-              f"({flops / times[c] / 1e9 / (peak / 1e12):.1%} of the {str(dtype)[6:]} peak)", flush=True)
+              f"({flops / times[c] / 1e9 / (peaks[c] / 1e12):.1%} of its {peaks[c] / 1e12:.1f} TFLOP/s peak)", flush=True)
     return times, plain, library, bounds
 
 
@@ -816,12 +896,27 @@ def llama_phase(att, card, model=LLAMA, device="cuda"):
     return launches, report, direct_tokens
 
 
+def graph_times(att, shape, routes, dtype=torch.bfloat16):
+    """graph_ms of the forward and backward kernels of `routes` at `shape`."""
+    B, S, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = qkv_views(B, S, H, D, dtype, gen)
+    do = torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
+    qs = (q * torch.tensor(D**-0.5, dtype=dtype)).contiguous()
+    o, lse = att.attention_fwd(qs, k, v)
+    out = {FWD_COUNTERS[r]: graph_ms(lambda r=r: att._launch_fwd(r, qs, k, v)) for r in routes}
+    out.update({BWD_COUNTERS[r]: graph_ms(lambda r=r: att._launch_bwd(r, qs, k, v, o, lse, do)) for r in routes})
+    return out
+
+
 def llama_kernel_phase(att):
     """The head-dim-128 kernels (sm90_d128, and the wmma yardstick) at
     Llama-2-7B's prefill shape and at its long shape: launched directly on
     the same inputs and checked against the float32 plain version, the
     route through causal_attention checked too, then timed beside the plain
-    version and SDPA; the sm90_d128 kernels must beat the wmma ones.
+    version and SDPA; the sm90_d128 kernels must beat the wmma ones, in
+    device time by CUDA-graph replay (at S=256 event timing of single
+    launches reads the host's launch rate).
     {shape: (max_err, times, plain, library, bounds)}."""
     out = {}
     for shape, seed in ((LLAMA_ATTN, 6), (LLAMA_LONG_ATTN, 7)):
@@ -833,10 +928,12 @@ def llama_kernel_phase(att):
         check_errors(f"{what} impl=auto (Llama)", ek, ep)
         max_err = check_direct(direct_err, ep, what)
         times, plain, library, bounds = timing_phase(att, shape, routes=D128_ROUTES)
+        graph = graph_times(att, shape, D128_ROUTES)
         for counters in (FWD_COUNTERS, BWD_COUNTERS):
             new, old = counters["sm90_d128"], counters["wmma"]
-            check(f"{new} faster than {old} at {what}", times[new] < times[old],
-                  f"{times[new]:.4f} ms vs {times[old]:.4f} ms")
+            check(f"{new} faster than {old} at {what} (graph replay)", graph[new] < graph[old],
+                  f"{graph[new]:.4f} ms vs {graph[old]:.4f} ms by graph replay; single launches {times[new]:.4f} "
+                  f"vs {times[old]:.4f} ms")
         out[shape] = (max_err, times, plain, library, bounds)
     return out
 
@@ -954,29 +1051,24 @@ STEP_DAG_MODEL = "gpt2_124m"  # (h): make_lm_step_spec's preset, float32 compute
 STEP_DAG_BATCH, STEP_DAG_SEQ, STEP_DAG_STEPS, STEP_DAG_CKPT = 4, 1024, 12, 6
 # Adam's rate: the spec's default, 1e-2 (sized for the `tiny` config),
 # moves every weight of GPT-2 124M (init std 0.02) by about half its size
-# each step: the loss climbed from 10.96 to 16.1 in 12 steps, and the
-# diverging run carried the backward's rounding differences (dq sums by
-# atomicAdd) into 1.5% of the loss.  3e-4 (make_train_step's default) trains.
+# each step: the loss climbed from 10.96 to 16.1 in 12 steps.  3e-4
+# (make_train_step's default) trains.
 STEP_DAG_LR = 3e-4
-STEP_DAG_ATTN = (STEP_DAG_BATCH, STEP_DAG_SEQ, 12, 64)  # B, S, H, D of its attention, float32 (the wmma route)
+STEP_DAG_ATTN = (STEP_DAG_BATCH, STEP_DAG_SEQ, 12, 64)  # B, S, H, D of its attention, float32 (the sm90_f32 route)
 STEP_DAG_STORE_BYTES = 8 << 30  # a checkpoint is 1.5 GB of host numpy (params, Adam's mu and nu)
-# eager vs DAG final weights: within this much of each leaf's norm (the
-# backward's dq sums by atomicAdd, so runs differ by rounding that Adam
-# carries into the weights); the key third of each qkv bias, whose gradient
-# is zero in exact arithmetic, within 2 * steps * lr (Adam steps on noise)
-STEP_DAG_WEIGHT_TOL = 1e-3
 
 
 def step_dag_kernel_phase(att):
-    """The float32 kernels (the wmma route) at (h)'s attention shape: routed
-    through causal_attention and launched directly, each checked against the
-    float32 plain version (1e-4 absolute), then timed beside the plain
-    version and SDPA in float32 against the float32 bound.
-    (max_err, times, plain, library, bounds)."""
+    """The float32 kernels (the sm90_f32 route, and the wmma yardstick) at
+    (h)'s attention shape: routed through causal_attention and launched
+    directly, each checked against the float32 plain version (1e-4
+    absolute), then timed beside the plain version and SDPA in float32,
+    each against its bound (route_peak).  (max_err, times, plain, library,
+    bounds)."""
     B, S, H, D = STEP_DAG_ATTN
     what = f"f32 B={B} S={S} H={H} D={D}"
     ek, _, taken, direct_err = attention_errors(att, B, S, H, D, torch.float32, "auto", seed=8, direct=True,
-                                                routes=("wmma",))
+                                                routes=F32_ROUTES)
     check_route(att, taken, torch.float32, D, f"{what} impl=auto (step DAG)")
     for n, e in ek.items():
         check(f"{n} {what} impl=auto", e <= 1e-4, f"{e:.3e} tol 1e-4")
@@ -984,7 +1076,7 @@ def step_dag_kernel_phase(att):
         for n, e in errs.items():
             check(f"{n} {what} {c}", e <= 1e-4, f"{e:.3e} tol 1e-4")
     max_err = {c: max(errs.values()) for c, errs in direct_err.items()}
-    return (max_err, *timing_phase(att, STEP_DAG_ATTN, routes=("wmma",), dtype=torch.float32))
+    return (max_err, *timing_phase(att, STEP_DAG_ATTN, routes=F32_ROUTES, dtype=torch.float32))
 
 
 def instrumented_spec(spec):
@@ -992,8 +1084,10 @@ def instrumented_spec(spec):
     TF32 off (as in the driver, phase 1) and zeroes the worker's launch
     counters before the run; fold stamps each step's completion; the
     snapshot, an eager call at a drained step boundary, also carries the
-    launch counts, the stamps and what the worker is.  Closures, so that
-    cloudpickle ships them by value: the worker needs nothing of this script."""
+    launch counts, the stamps, what the worker is, and whether it ran under
+    torch's deterministic algorithms (which the spec's build sets on the
+    card).  Closures, so that cloudpickle ships them by value: the worker
+    needs nothing of this script."""
     build, fold, snapshot, restore = spec.build, spec.fold, spec.snapshot, spec.restore
 
     def build_(config, rank, world):
@@ -1030,6 +1124,8 @@ def instrumented_spec(spec):
             "pid": os.getpid(),
             "device": torch.cuda.get_device_name() if state["device"].type == "cuda" else "cpu",
             "forbidden_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")),
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "cublas_workspace": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         }
 
     def restore_(state, snap):
@@ -1115,12 +1211,16 @@ def step_dag_phase(kind, card, model=STEP_DAG_MODEL, batch=STEP_DAG_BATCH, seq=S
         check(f"step DAG (h) {name} worker loads no jax or ray_tpu module", snap["forbidden_modules"] == [],
               f"{snap['forbidden_modules']}")
         la = run["launches"]
-        check(f"step DAG (h) {name} launches all on the wmma kernels",
-              la["causal_attention_fwd_wmma"] == la["causal_attention_fwd"] == per_fwd * steps
-              and la["causal_attention_bwd_wmma"] == la["causal_attention_bwd"] == cfg.n_layer * steps,
-              f"fwd wmma {la['causal_attention_fwd_wmma']} of {la['causal_attention_fwd']}, bwd wmma "
-              f"{la['causal_attention_bwd_wmma']} of {la['causal_attention_bwd']}; want {per_fwd * steps} and "
+        check(f"step DAG (h) {name} launches all on the sm90_f32 kernels",
+              la["causal_attention_fwd_sm90_f32"] == la["causal_attention_fwd"] == per_fwd * steps
+              and la["causal_attention_bwd_sm90_f32"] == la["causal_attention_bwd"] == cfg.n_layer * steps,
+              f"fwd sm90_f32 {la['causal_attention_fwd_sm90_f32']} of {la['causal_attention_fwd']}, bwd sm90_f32 "
+              f"{la['causal_attention_bwd_sm90_f32']} of {la['causal_attention_bwd']}; want {per_fwd * steps} and "
               f"{cfg.n_layer * steps}")
+        if device == "cuda":
+            check(f"step DAG (h) {name} ran under torch's deterministic algorithms",
+                  snap["deterministic"] and snap["cublas_workspace"] is not None,
+                  f"deterministic {snap['deterministic']}, CUBLAS_WORKSPACE_CONFIG {snap['cublas_workspace']!r}")
         check(f"step DAG (h) {name} checkpoint at step {steps}",
               run["step"] == steps and int(snap["lm"]["opt_state"]["count"]) == steps,
               f"step {run['step']}, Adam count {int(snap['lm']['opt_state']['count'])}")
@@ -1130,24 +1230,17 @@ def step_dag_phase(kind, card, model=STEP_DAG_MODEL, batch=STEP_DAG_BATCH, seq=S
     saved = eager["ms_per_step"] - dag["ms_per_step"]
     print(f"step DAG (h) ms/step eager {eager['ms_per_step']:.3f}, DAG {dag['ms_per_step']:.3f}, difference "
           f"{saved:.3f} ({card})", flush=True)
-    check("step DAG (h) first loss bit-equal eager vs DAG", eager["losses"][0] == dag["losses"][0],
-          f"{eager['losses'][0]!r} vs {dag['losses'][0]!r}")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(eager["losses"], dag["losses"]))
-    check("step DAG (h) every loss within 1e-3 relative eager vs DAG", rel <= 1e-3, f"max {rel:.3e}")
+    # the step is deterministic on the card (ordered dq in the attention
+    # backward, torch's deterministic algorithms), as the reference's is:
+    # the two paths must agree bit for bit
+    diff = [i for i, (a, b) in enumerate(zip(eager["losses"], dag["losses"])) if a != b]
+    check("step DAG (h) every loss bit-equal eager vs DAG", not diff and len(eager["losses"]) == len(dag["losses"]),
+          f"steps differing {diff}; first {eager['losses'][0]!r} vs {dag['losses'][0]!r}")
     pe, pd = eager["snap"]["lm"]["params"], dag["snap"]["lm"]["params"]
-    E, lr = cfg.n_embd, spec.config["lr"]
-    wrel, kdiff = {}, 0.0
-    for n in pd:
-        a, b = pe[n].astype(np.float64), pd[n].astype(np.float64)
-        if n.endswith("qkv.bias"):
-            kdiff = max(kdiff, float(np.abs(a[E : 2 * E] - b[E : 2 * E]).max()))
-            a, b = np.delete(a, np.s_[E : 2 * E]), np.delete(b, np.s_[E : 2 * E])
-        wrel[n] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
-    worst = max(wrel, key=wrel.get)
-    check(f"step DAG (h) final weights within {STEP_DAG_WEIGHT_TOL:g} of each leaf's norm",
-          wrel[worst] <= STEP_DAG_WEIGHT_TOL, f"max {wrel[worst]:.3e} ({worst})")
-    check("step DAG (h) final key biases within 2 * steps * lr", kdiff <= 2 * steps * lr,
-          f"max |diff| {kdiff:.3e}, bound {2 * steps * lr:.3e}")
+    wdiff = {n: float(np.abs(pe[n].astype(np.float64) - pd[n].astype(np.float64)).max())
+             for n in pd if pe[n].tobytes() != pd[n].tobytes()}
+    check("step DAG (h) final weights byte-equal eager vs DAG", not wdiff and pe.keys() == pd.keys(),
+          f"{len(wdiff)} of {len(pd)} leaves differ" + (f", max |diff| {max(wdiff.values()):.3e}" if wdiff else ""))
     check("step DAG (h) eager checkpoint intact after the DAG run", after == crc["eager"],
           f"{sum(after[n] != crc['eager'][n] for n in after)} of {len(after)} leaves changed")
     await_no_leftover("step DAG (h)", cluster, before)
@@ -1156,8 +1249,8 @@ def step_dag_phase(kind, card, model=STEP_DAG_MODEL, batch=STEP_DAG_BATCH, seq=S
 
 def build_phase(att):
     """Build every kernel source at once; print registers and spills per
-    kernel (ptxas), failing if an sm90 kernel spills, and the sm90 forward's
-    and backward's shared memory and CTAs per SM."""
+    kernel (ptxas), failing if an sm90 kernel (the f32 ones included)
+    spills, and the sm90 kernels' shared memory and CTAs per SM."""
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -1185,6 +1278,14 @@ def build_phase(att):
         check(f"{name} occupancy query", err == 0, f"error {err}")
         print(f"occupancy {name}_kernel: {smem.value} bytes of dynamic shared memory, "
               f"{ctas.value} CTAs (of {threads} threads) per SM", flush=True)
+    for name, threads in (("attn_fwd_sm90_f32", {64: 256, 128: 256}), ("attn_bwd_sm90_f32", {64: 256, 128: 128})):
+        for D in (64, 128):
+            smem, ctas = ctypes.c_int(), ctypes.c_int()
+            lib = att._kernels(name.replace("attn", "attention"))
+            err = getattr(lib, f"rtt_{name}_occupancy")(D, ctypes.byref(smem), ctypes.byref(ctas))
+            check(f"{name} D={D} occupancy query", err == 0, f"error {err}")
+            print(f"occupancy {name}_kernel<{D}>: {smem.value} bytes of dynamic shared memory, "
+                  f"{ctas.value} CTAs (of {threads[D]} threads) per SM", flush=True)
     for backward, name, threads in ((0, "attn_fwd_kernel", 128), (1, "attn_bwd_kernel", 256)):
         smem, ctas = ctypes.c_int(), ctypes.c_int()
         err = att._kernels("causal_attention").rtt_attn_occupancy(0, 128, backward, ctypes.byref(smem),
@@ -1218,7 +1319,8 @@ def main() -> int:
 
     # 3. kernels
     with timed("3 kernels"):
-        max_err, f32_launches = kernel_phase(att)
+        max_err = kernel_phase(att)
+        determinism_phase(att)
         times, plain, library, bounds = timing_phase(att)
 
     # 4. the slice, then path (d)
@@ -1233,15 +1335,15 @@ def main() -> int:
     # 6. (f) Llama-2-7B direct: the head-dim-128 kernels at its prefill and
     # long shapes, then the model.  The sm90_d128 kernels' line reads (f)'s
     # launches and the prefill shape's numbers; the wmma kernels' line
-    # their direct launches at the prefill shape (launches: (h)'s, below);
-    # both carry the long shape's numbers beside.
+    # (on no route: no launches) their direct launches at the prefill
+    # shape; both carry the long shape's numbers beside.
     with timed("6 (f) llama direct"):
         d128 = llama_kernel_phase(att)
         llama_launches, _, direct_tokens = llama_phase(att, smi)
     long = {}
-    for route, source in (("sm90_d128", llama_launches), ("wmma", f32_launches)):  # wmma's replaced in (h)
+    for route in D128_ROUTES:
         for name in (FWD_COUNTERS[route], BWD_COUNTERS[route]):
-            launches[name] = source[name]
+            launches[name] = llama_launches[name]
             for table, value in zip((max_err, times, plain, library, bounds), d128[LLAMA_ATTN]):
                 table[name] = value[name]
             l_err, l_times, l_plain, l_library, l_bounds = d128[LLAMA_LONG_ATTN]
@@ -1254,15 +1356,20 @@ def main() -> int:
         serve_phase(kind, smi, direct_tokens)
 
     # 8. (h) the step DAG: GPT-2 124M in float32 through TorchTrainer's
-    # eager per-step path and TrainStepDag, on the wmma kernels.  Their
-    # launches in the kernels line are (h)'s (both runs), with (h)'s
-    # shape's error and times beside the D=128 ones.
+    # eager per-step path and TrainStepDag, on the sm90_f32 kernels.  Their
+    # line reads (h)'s launches (both runs) and (h)'s shape's error and
+    # times; the wmma line carries its float32 numbers at that shape under
+    # "f32", beside its D=128 ones.
     with timed("8 (h) step DAG"):
         f32_err, f32_times, f32_plain, f32_library, f32_bounds = step_dag_kernel_phase(att)
         runs = step_dag_phase(kind, smi)
     f32 = {}
-    for name in (FWD_COUNTERS["wmma"], BWD_COUNTERS["wmma"]):
+    for name in (FWD_COUNTERS["sm90_f32"], BWD_COUNTERS["sm90_f32"]):
         launches[name] = sum(run["launches"][name] for run in runs.values())
+        for table, value in zip((max_err, times, plain, library, bounds),
+                                (f32_err, f32_times, f32_plain, f32_library, f32_bounds)):
+            table[name] = value[name]
+    for name in (FWD_COUNTERS["wmma"], BWD_COUNTERS["wmma"]):
         f32[name] = {"shape": list(STEP_DAG_ATTN), "dtype": "float32", "max_abs_err": f32_err[name],
                      "ms": f32_times[name], "plain_ms": f32_plain[name], "bound_ms": f32_bounds[name][0],
                      "bound_by": f32_bounds[name][1], "library_ms": f32_library[name]}
@@ -1280,24 +1387,32 @@ def kernel_report(launches, max_err, times, plain, library, bounds, long, f32):
         "causal_attention_fwd_sm90_d128": (
             "ray_tpu_torch/ops/csrc/attention_fwd_sm90_d128.cu", f"{TPU_KERNELS}:1137",
             f"ported (wgmma, TMA in 64-column halves, producer warp); bf16 at D=128, Llama's forward; {d128}"),
+        "causal_attention_fwd_sm90_f32": (
+            "ray_tpu_torch/ops/csrc/attention_fwd_sm90_f32.cu", f"{TPU_KERNELS}:1137",
+            "ported (mma.sync 3xTF32, TMA); float32 at D=64 and 128: launches from the step DAG phase (h), GPT-2 "
+            "124M in float32 (eager and DAG runs); error and times at its attention, B=4 S=1024 H=12 D=64; bound at "
+            "3xTF32 (494.7/3 TFLOP/s)"),
         "causal_attention_fwd_wmma": (
             "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:1137",
-            "ported (WMMA); float32 at D=64 and 128: launches from the step DAG phase (h), GPT-2 124M in float32 "
-            "(eager and DAG runs), its float32 error and times under 'f32'; the in-run yardstick of the sm90_d128 "
-            "forward: error and times from direct launches at B=1 S=256 H=32 D=128"),
+            "ported (WMMA), on no route: the in-run yardstick of the sm90_d128 forward (error and times from direct "
+            "launches at B=1 S=256 H=32 D=128) and of the sm90_f32 forward (float32, FMA path, under 'f32')"),
         "causal_attention_bwd_sm90": (
             "ray_tpu_torch/ops/csrc/attention_bwd_sm90.cu", f"{TPU_KERNELS}:2196",  # _splash_attention_bwd_dkv, fused
-            "ported (wgmma, TMA, bulk reduce-add of dq); bf16 at D=64, the GPT-2 path's backward (slice (b)); "
+            "ported (wgmma, TMA, bulk reduce-add of dq in key-tile order); bf16 at D=64, the GPT-2 path's backward (slice (b)); "
             "also serves impl='flash' (flash_attention.py:1121/1456)"),
         "causal_attention_bwd_sm90_d128": (
             "ray_tpu_torch/ops/csrc/attention_bwd_sm90_d128.cu", f"{TPU_KERNELS}:2196",
-            "ported (wgmma, TMA in 64-column halves, two warpgroups of 64 keys, bulk reduce-add of dq); "
+            "ported (wgmma, TMA in 64-column halves, two warpgroups of 64 keys, bulk reduce-add of dq in key-tile "
+            "order); "
             f"bf16 at D=128, Llama's backward; {d128}"),
+        "causal_attention_bwd_sm90_f32": (
+            "ray_tpu_torch/ops/csrc/attention_bwd_sm90_f32.cu", f"{TPU_KERNELS}:2196",
+            "ported (mma.sync 3xTF32, TMA, dq added in key-tile order); float32 at D=64 and 128: launches from the "
+            "step DAG phase (h) (eager and DAG runs); error and times at B=4 S=1024 H=12 D=64; bound at 3xTF32"),
         "causal_attention_bwd_wmma": (
             "ray_tpu_torch/ops/csrc/causal_attention.cu", f"{TPU_KERNELS}:2196",
-            "ported (WMMA); float32 at D=64 and 128: launches from the step DAG phase (h), GPT-2 124M in float32 "
-            "(eager and DAG runs), its float32 error and times under 'f32'; the in-run yardstick of the sm90_d128 "
-            "backward: error and times from direct launches at B=1 S=256 H=32 D=128"),
+            "ported (WMMA, dq by atomics in no fixed order), on no route: the in-run yardstick of the sm90_d128 "
+            "backward (direct launches at B=1 S=256 H=32 D=128) and of the sm90_f32 backward (float32, under 'f32')"),
     }
     return [
         {

@@ -21,6 +21,7 @@ import mmap
 import os
 import struct
 import sys
+import time
 import traceback
 from typing import List, Optional
 
@@ -87,6 +88,8 @@ class _Lib:
             ]
             lib.store_release.restype = ctypes.c_int
             lib.store_release.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
+            lib.store_release_process.restype = ctypes.c_int
+            lib.store_release_process.argtypes = [ctypes.c_void_p, ctypes.c_int32]
             for name in (
                 "store_contains",
                 "store_delete",
@@ -108,6 +111,37 @@ class _Lib:
                 f.argtypes = [ctypes.c_void_p]
             cls._instance = lib
         return cls._instance
+
+
+def process_gone(pid: int) -> bool:
+    """True once ``pid`` has exited (no such process, or a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+    except OSError:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return True
+        except OSError:
+            pass
+        return False
+
+
+async def release_pins_when_gone(store: "ShmObjectStore", pid: int, wait_s: float = 10.0) -> int:
+    """Drop the pins of a worker declared dead once its process is gone
+    (a worker cut off while alive exits on its own): the number dropped, 0
+    if it outlived ``wait_s``."""
+    import asyncio
+
+    deadline = time.monotonic() + wait_s
+    while not process_gone(pid):
+        if time.monotonic() >= deadline:
+            return 0
+        await asyncio.sleep(0.05)
+    return store.release_process(pid)
 
 
 # memoryview() only delegates to a Python-level __buffer__ from 3.12 on
@@ -473,6 +507,13 @@ class ShmObjectStore:
         """Drop one pin that a get at ``offset`` took."""
         if self._handle:
             self._lib.store_release(self._handle, object_id, offset)
+
+    def release_process(self, pid: int) -> int:
+        """Drop every pin that the dead process ``pid`` held, freeing each
+        delete-pending block whose last pin goes (plasma drops a client's
+        pins when it disconnects); the number of pins dropped.  Only for a
+        process known dead: a live one's views would lose their blocks."""
+        return self._lib.store_release_process(self._handle, pid) if self._handle else 0
 
     def delete(self, object_id: bytes):
         """The owner-driven free: a sealed object that a reader still pins

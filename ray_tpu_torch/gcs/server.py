@@ -1977,6 +1977,28 @@ class HeadServer:
 
     # ---------------------------------------------------- lifecycle: workers
 
+    def _release_dead_pins(self, w, node):
+        """Drop the pins the dead worker's process held in its node's store,
+        once the process is gone, so that blocks deleted while it pinned
+        them (or after) are freed (plasma drops a client's pins when its
+        connection goes): the head's own store directly, a raylet's by
+        directive."""
+        if not w.pid:
+            return
+        if w.node_id == self.head_node_id:
+            from ray_tpu_torch.core.shm_store import release_pins_when_gone
+
+            async def _release():
+                n = await release_pins_when_gone(self._store, w.pid)
+                if n:
+                    logger.info("dropped %d store pins of dead worker pid %d", n, w.pid)
+
+            asyncio.get_running_loop().create_task(_release())
+        elif node is not None and node.conn is not None:
+            asyncio.get_running_loop().create_task(
+                node.conn.send(MsgType.PUSH_TASK, {"directive": "release_pins", "pid": w.pid})
+            )
+
     async def _on_worker_dead(self, wid: bytes, reason: str):
         w = self.workers.pop(wid, None)
         if w is None:
@@ -1998,6 +2020,7 @@ class HeadServer:
                 w.conn.close()
         except Exception:  # noqa: BLE001
             logger.debug("closing dead worker connection failed", exc_info=True)
+        self._release_dead_pins(w, node)
         # fail or retry its running tasks
         for tid in list(w.running_tasks):
             entry = self.tasks.pop(tid, None)

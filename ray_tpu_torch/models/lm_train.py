@@ -86,12 +86,32 @@ def synthetic_batch(
 # ---------------------------------------------------------------- step spec
 
 
+def _deterministic_on_the_card() -> None:
+    """Make every CUDA op of the step run the same sums in the same order
+    from run to run, as the reference's XLA step does: the attention
+    kernels add dq in a fixed order already; this picks PyTorch's
+    deterministic algorithms (and raises on an op that has none) and a fixed
+    cuBLAS workspace, which torch requires for deterministic matmuls across
+    streams.  Process-wide, in the worker that trains; set before its first
+    cuBLAS call.  Uninitialized memory is not filled: that is a debugging
+    aid, and the kernels write every element they return."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
 def _lm_build(config, rank, world):
     """Worker-side build for the LM TrainStepSpec: the model in float32
     compute and plain Adam (optax.adam's formula and defaults: b1 0.9, b2
     0.999, eps 1e-8), params device-resident from here on.  Same init seed
-    on every rank (the DP contract)."""
+    on every rank (the DP contract).  On the card the step is made
+    deterministic (`_deterministic_on_the_card`), so that the eager path and
+    the step DAG give bit-equal losses and weights."""
     dev = resolve_device(config["device"])
+    if dev.type == "cuda":
+        _deterministic_on_the_card()
     cfg = getattr(GPT2Config, config["model"])(compute_dtype=torch.float32)
     model = GPT2Model(cfg, device=dev, seed=int(config["init_seed"]))
     opt = torch.optim.Adam(model.parameters(), lr=float(config["lr"]), betas=(0.9, 0.999), eps=1e-8)

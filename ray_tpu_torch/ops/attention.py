@@ -8,9 +8,13 @@ names launches the CUDA kernels on a CUDA tensor: for bfloat16 the forward
 of `csrc/attention_fwd_sm90.cu` and the fused backward of
 `csrc/attention_bwd_sm90.cu` (wgmma, TMA) at head dim 64, and their head-dim
 128 forms `csrc/attention_fwd_sm90_d128.cu` and
-`csrc/attention_bwd_sm90_d128.cu`; for float32 the forward and fused
-backward of `csrc/causal_attention.cu` (WMMA); chosen by the tables
-`_FWD_ROUTES` and `_BWD_ROUTES`.  Only
+`csrc/attention_bwd_sm90_d128.cu`; for float32 `csrc/attention_fwd_sm90_f32.cu`
+and `csrc/attention_bwd_sm90_f32.cu` (3xTF32 on the tensor cores, TMA) at
+both head dims; chosen by the tables `_FWD_ROUTES` and `_BWD_ROUTES`.  Every
+backward adds dq in a fixed order, so a run's gradients are the same from
+run to run, as the reference's are.  `csrc/causal_attention.cu` (WMMA) is
+on no route: it is built and launched directly as the yardstick the other
+kernels are timed against.  Only
 `impl="xla"` names the plain version, the port of `_xla_causal_attention`.
 On a CPU tensor every impl runs the plain version.
 
@@ -35,34 +39,39 @@ _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # The forward kernel for each (dtype, head_dim), chosen by type and shape
 # alone: "sm90" is attention_fwd_sm90.cu, "sm90_d128" attention_fwd_sm90_d128.cu,
-# "wmma" causal_attention.cu's attn_fwd_kernel.
+# "sm90_f32" attention_fwd_sm90_f32.cu.
 _FWD_ROUTES = {
     (torch.bfloat16, 64): "sm90",
     (torch.bfloat16, 128): "sm90_d128",
-    (torch.float32, 64): "wmma",
-    (torch.float32, 128): "wmma",
+    (torch.float32, 64): "sm90_f32",
+    (torch.float32, 128): "sm90_f32",
 }
-# route -> (library under csrc/, entry point, launch counter)
+# kernel -> (library under csrc/, entry point, launch counter); "wmma",
+# causal_attention.cu's attn_fwd_kernel, is on no route: the yardstick
 _FWD_KERNELS = {
     "sm90": ("attention_fwd_sm90", "rtt_attn_fwd_sm90", "causal_attention_fwd_sm90"),
     "sm90_d128": ("attention_fwd_sm90_d128", "rtt_attn_fwd_sm90_d128", "causal_attention_fwd_sm90_d128"),
+    "sm90_f32": ("attention_fwd_sm90_f32", "rtt_attn_fwd_sm90_f32", "causal_attention_fwd_sm90_f32"),
     "wmma": ("causal_attention", "rtt_attn_fwd", "causal_attention_fwd_wmma"),
 }
 # The same for the fused backward: "sm90" is attention_bwd_sm90.cu,
-# "sm90_d128" attention_bwd_sm90_d128.cu, "wmma" causal_attention.cu's
-# attn_bwd_kernel.
+# "sm90_d128" attention_bwd_sm90_d128.cu, "sm90_f32" attention_bwd_sm90_f32.cu;
+# "wmma" (causal_attention.cu's attn_bwd_kernel, dq summed by atomics in no
+# fixed order) is on no route.
 _BWD_ROUTES = {
     (torch.bfloat16, 64): "sm90",
     (torch.bfloat16, 128): "sm90_d128",
-    (torch.float32, 64): "wmma",
-    (torch.float32, 128): "wmma",
+    (torch.float32, 64): "sm90_f32",
+    (torch.float32, 128): "sm90_f32",
 }
 _BWD_KERNELS = {
     "sm90": ("attention_bwd_sm90", "rtt_attn_bwd_sm90", "causal_attention_bwd_sm90"),
     "sm90_d128": ("attention_bwd_sm90_d128", "rtt_attn_bwd_sm90_d128", "causal_attention_bwd_sm90_d128"),
+    "sm90_f32": ("attention_bwd_sm90_f32", "rtt_attn_bwd_sm90_f32", "causal_attention_bwd_sm90_f32"),
     "wmma": ("causal_attention", "rtt_attn_bwd", "causal_attention_bwd_wmma"),
 }
-# the sm90 backwards' q tile: their f32 dq accumulator holds whole tiles
+# the sm90 backwards' q tile: their f32 dq accumulator holds whole tiles,
+# and their dq adds are ordered by one int semaphore per (batch, head, tile)
 BWD_SM90_TILE = 64
 
 # Launches of each kernel since the last reset_launch_counts(): a run reads
@@ -73,10 +82,12 @@ LAUNCHES = {
     "causal_attention_fwd": 0,
     "causal_attention_fwd_sm90": 0,
     "causal_attention_fwd_sm90_d128": 0,
+    "causal_attention_fwd_sm90_f32": 0,
     "causal_attention_fwd_wmma": 0,
     "causal_attention_bwd": 0,
     "causal_attention_bwd_sm90": 0,
     "causal_attention_bwd_sm90_d128": 0,
+    "causal_attention_bwd_sm90_f32": 0,
     "causal_attention_bwd_wmma": 0,
 }
 
@@ -107,7 +118,10 @@ def plain_causal_attention(
 
 _P, _I, _STRIDES = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 _FWD_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _STRIDES, _P]
-_SM90_BWD_ARGTYPES = [_I, _I, *[_P] * 11, _I, _I, _I, _STRIDES, _P]
+# dtype, D; q, k, v, o, do, lse, di, dq_acc, sem, dq, dk, dv; B, H, S; strides; stream
+_SM90_BWD_ARGTYPES = [_I, _I, *[_P] * 12, _I, _I, _I, _STRIDES, _P]
+# dtype, D; q, k, v, o, do, lse, di, sem, dq, dk, dv; B, H, S; strides; stream
+_F32_BWD_ARGTYPES = [_I, _I, *[_P] * 11, _I, _I, _I, _STRIDES, _P]
 # library -> {entry point: argtypes}; every pointer and the stream are c_void_p
 _ENTRY_POINTS = {
     "causal_attention": {
@@ -125,6 +139,8 @@ _ENTRY_POINTS = {
         "rtt_attn_bwd_sm90_d128": _SM90_BWD_ARGTYPES,
         "rtt_attn_bwd_sm90_d128_occupancy": [_P, _P],
     },
+    "attention_fwd_sm90_f32": {"rtt_attn_fwd_sm90_f32": _FWD_ARGTYPES, "rtt_attn_fwd_sm90_f32_occupancy": [_I, _P, _P]},
+    "attention_bwd_sm90_f32": {"rtt_attn_bwd_sm90_f32": _F32_BWD_ARGTYPES, "rtt_attn_bwd_sm90_f32_occupancy": [_I, _P, _P]},
 }
 
 
@@ -203,17 +219,24 @@ def _launch_bwd(route: str, q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Te
     dv = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     strides, stream = _qkv_strides(q, k, v), _stream(q.device)
     if route != "wmma":
-        # the sm90 entry points fill di, zero the f32 dq accumulator and cast
-        # it to dq; the accumulator holds whole 64-row tiles (rows padded to
-        # a multiple of 64), each a contiguous block of D/8 8-column blocks
+        # the sm90 entry points fill di and zero dq's f32 sum and the
+        # semaphores (one int per (batch, head, 64-row tile)) that order its
+        # adds.  bf16: the sum is an accumulator of whole 64-row tiles (rows
+        # padded to a multiple of 64), each a contiguous block of D/8
+        # 8-column blocks, cast to dq after; float32: dq itself.
+        n_tiles = -(-S // BWD_SM90_TILE)
         di = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-        s_pad = -(-S // BWD_SM90_TILE) * BWD_SM90_TILE
-        dq_acc = torch.empty((B, H, s_pad, D), dtype=torch.float32, device=q.device)
+        sem = torch.empty((B, H, n_tiles), dtype=torch.int32, device=q.device)
         dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
         o = _contiguous_aligned(o)
+        if route == "sm90_f32":
+            acc = ()
+        else:
+            dq_acc = torch.empty((B, H, n_tiles * BWD_SM90_TILE, D), dtype=torch.float32, device=q.device)
+            acc = (dq_acc.data_ptr(),)
         err = getattr(lib, entry)(
             _KERNEL_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(), *acc, sem.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, S, strides, stream,
         )
     else:

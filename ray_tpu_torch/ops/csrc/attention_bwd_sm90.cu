@@ -53,8 +53,14 @@
 //     rounded to bf16, as 16-byte row stores through the K and V tiles.
 //   - dq: each q tile's dQ partial (f32) is staged in shared memory and
 //     added to an f32 accumulator in device memory by one bulk reduce-add
-//     (cp.reduce.async.bulk ... add.f32) of 16 KB.  The accumulator keeps
-//     each (batch, head, 64-row tile) as one contiguous 16 KB block, stored
+//     (cp.reduce.async.bulk ... add.f32) of 16 KB, in the order of the key
+//     tiles (sm90_common.cuh's semaphores: the CTA of key tile kt adds to q
+//     tile i once the count of i reads kt), so dq is the same from run to
+//     run.  The count is bumped when the reduce has completed, which thread
+//     0 waits for at the next q tile's first barrier, so the add overlaps
+//     the next tile's products; key tile kt then trails kt - 1 by about two
+//     q tiles, which three CTAs an SM hide.  The accumulator keeps each
+//     (batch, head, 64-row tile) as one contiguous 16 KB block, stored
 //     in 8-column blocks ([8][64 rows][8]) so that a warp's stores of its
 //     dQ fragment cover 256 contiguous bytes with no bank conflict; the
 //     rows are padded to a multiple of 64.  A postprocess kernel casts it
@@ -130,7 +136,7 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse, const float* __restrict__ di, float* __restrict__ dq_acc,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S) {
+                     int* __restrict__ sem, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S) {
   using L = Smem;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -148,6 +154,9 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const float* lse_bh = lse + bh * S;
   const float* di_bh = di + bh * S;
   float* dq_bh = dq_acc + bh * n_q * (BM * D);
+  // partials added so far to q tile i of this (batch, head); computed where
+  // used, as a live pointer costs the registers of three CTAs an SM
+  auto sem_of = [&](int i) { return sem + (static_cast<long long>(blockIdx.y) * H + blockIdx.x) * n_q + i; };
   // lse (base 2) and di of q tile j's rows, one value per thread, for the
   // buffer stats[j % 2]; +inf past S makes P 0 there
   float* stats = reinterpret_cast<float*>(smem + L::stats);
@@ -250,7 +259,10 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     }
     fence_async_smem();
     if (j + 1 < n_it) stats[((j + 1) % 2) * 2 * BM + tid] = next_stat;  // stats[(j+1) % 2] was read before the last barrier
-    if (tid == 0) bulk_wait_read<DQ_BUFS - 1>();  // the dQ buffer of this tile is free again
+    if (tid == 0 && j > 0) {  // the previous tile's add is done: the dQ buffer is free, the next key tile's turn
+      bulk_wait_done();
+      sem_release(sem_of(kt + j - 1));
+    }
     __syncthreads();
 
     // (5) dQ = dS K: A = dS read transposed from dS^T, B = K MN-major
@@ -279,12 +291,13 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     fence_async_smem();
     __syncthreads();  // every warp is done with stage s, dS^T, and its dQ stores
     if (tid == 0) {
-      bulk_reduce_add(dq_bh + static_cast<long long>(kt + j) * (BM * D), base + L::dq + buf * L::DQ, L::DQ);
       if (j + STAGES < n_it) {
         mbar_expect_tx(full(s), 2 * L::TILE);
         tma_load(sq, &tq, full(s), h, (kt + j + STAGES) * BM, b);
         tma_load(sdo, &tdo, full(s), h, (kt + j + STAGES) * BM, b);
       }
+      sem_wait(sem_of(kt + j), kt);  // key tiles 0 .. kt-1 have added theirs
+      bulk_reduce_add(dq_bh + static_cast<long long>(kt + j) * (BM * D), base + L::dq + buf * L::DQ, L::DQ);
     }
   }
 
@@ -307,13 +320,16 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         *reinterpret_cast<uint4*>(out[t] + off) = *reinterpret_cast<const uint4*>(stile[t] + r * ROW_BYTES + (c ^ (r % 8)) * 16);
     }
   }
-  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");  // the last reduces are done
+  if (tid == 0) {  // the last add is done: the next key tile's turn
+    bulk_wait_done();
+    sem_release(sem_of(kt + n_it - 1));
+  }
 }
 
 // ------------------------------------------------------------------- host
 
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse, float* di,
-           float* dq_acc, void* dq, void* dk, void* dv, int B, int H, int S, const long long* st,
+           float* dq_acc, int* sem, void* dq, void* dk, void* dv, int B, int H, int S, const long long* st,
            cudaStream_t stream) {
   using L = Smem;
   const long long contiguous[3] = {static_cast<long long>(S) * H * D, static_cast<long long>(H) * D, D};
@@ -328,6 +344,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   const unsigned row_blocks = static_cast<unsigned>((rows * 8 + 255) / 256);
 
   cudaError_t ce = cudaMemsetAsync(dq_acc, 0, static_cast<size_t>(B) * H * n_q * BM * D * sizeof(float), stream);
+  if (ce == cudaSuccess) ce = cudaMemsetAsync(sem, 0, static_cast<size_t>(B) * H * n_q * sizeof(int), stream);
   if (ce != cudaSuccess) return ce;
   attn_bwd_sm90_pre_kernel<D><<<row_blocks, 256, 0, stream>>>(static_cast<const bf16*>(o),
                                                               static_cast<const bf16*>(dout), di, H, S, rows);
@@ -335,8 +352,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   auto kern = attn_bwd_sm90_kernel;
   ce = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (ce != cudaSuccess) return ce;
-  kern<<<dim3(H, B, n_q), NTHREADS, L::bytes, stream>>>(tq, tk, tv, tdo, lse, di, dq_acc, static_cast<bf16*>(dk),
-                                                        static_cast<bf16*>(dv), H, S);
+  kern<<<dim3(H, B, n_q), NTHREADS, L::bytes, stream>>>(tq, tk, tv, tdo, lse, di, dq_acc, sem,
+                                                        static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S);
   if ((ce = cudaGetLastError()) != cudaSuccess) return ce;
   attn_bwd_sm90_post_kernel<D, BM><<<row_blocks, 256, 0, stream>>>(dq_acc, static_cast<bf16*>(dq), H, S, rows);
   return cudaGetLastError();
@@ -348,14 +365,16 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 // element strides (batch, seq, head) of q, k, v, each a multiple of 8
 // elements.  o, dout, dq, dk, dv are contiguous [B, S, H, D] bf16; lse and
 // di (written here) contiguous [B, H, S] f32.  dq_acc: f32 scratch of
-// B * H * ceil(S / 64) * 64 * D elements, zeroed here.  Returns 0, a
+// B * H * ceil(S / 64) * 64 * D elements, and sem: int scratch of
+// B * H * ceil(S / 64), both zeroed here.  Returns 0, a
 // cudaError_t, or an error code of sm90_common.cuh; rtt_error_string names
 // it.
 extern "C" int rtt_attn_bwd_sm90(int dtype, int Dh, const void* q, const void* k, const void* v, const void* o,
-                                 const void* dout, const float* lse, float* di, float* dq_acc, void* dq, void* dk,
-                                 void* dv, int B, int H, int S, const long long* strides, void* stream) {
+                                 const void* dout, const float* lse, float* di, float* dq_acc, int* sem, void* dq,
+                                 void* dk, void* dv, int B, int H, int S, const long long* strides, void* stream) {
   if (dtype != 0 || Dh != D) return cudaErrorInvalidValue;
-  return launch(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, H, S, strides, static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, o, dout, lse, di, dq_acc, sem, dq, dk, dv, B, H, S, strides,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The main kernel's dynamic shared memory in bytes and how many of its CTAs

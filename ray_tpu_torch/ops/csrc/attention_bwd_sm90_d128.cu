@@ -59,11 +59,20 @@
 // first warpgroup's threads stage each tile's lse (times log2 e, +inf past
 // S so P = 0 there) and di one tile ahead.  A q tile wholly above a
 // warpgroup's keys (the CTA's first, for the second warpgroup) is skipped:
-// its dS^T rows are zero.  Each warpgroup stages its dQ half (f32, 16 KB, in 8-column blocks)
-// and adds it with one cp.reduce.async.bulk into the accumulator, which
-// keeps each (batch, head, 64-row tile) as one 32 KB block of 16 blocks
-// [64 rows][8].  The pre- and postprocess kernels (di, the cast of dq) are
-// sm90_common.cuh's, at D=128.
+// its dS^T rows are zero.  Each warpgroup stages its dQ half (f32, 16 KB,
+// in 8-column blocks) and adds it with one cp.reduce.async.bulk into the
+// accumulator, which keeps each (batch, head, 64-row tile) as one 32 KB
+// block of 16 blocks [64 rows][8].  The adds go in the order of the key
+// tiles (sm90_common.cuh's semaphores: both halves of key tile kt wait
+// until the q tile's count reads 2 kt; each bumps it once its reduce has
+// completed, which it waits for halfway through the next q tile: earlier
+// stalls the warpgroup, later delays the next key tile), so dq is the
+// same from run to run.  A CTA walks its q tiles from the last down to its
+// diagonal, so that every key tile reaches a q tile at the same time and
+// kt trails kt - 1 only by the add; walked upwards, kt would reach each q
+// tile two tiles before kt - 1 and wait there every time, which at one CTA
+// an SM leaves the SM idle.  The pre- and postprocess kernels (di, the
+// cast of dq) are sm90_common.cuh's, at D=128.
 // Later work (ROADMAP): a persistent grid, overlapping one warpgroup's
 // products with the other's elementwise work.
 //
@@ -138,7 +147,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ di, float* __restrict__ dq_acc,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S) {
+                          int* __restrict__ sem, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S) {
   using L = Smem;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -158,14 +167,15 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   float* stats = reinterpret_cast<float*>(smem + L::stats);
 
   // lse (base 2) and di of q tile j's rows, one value for each thread of
-  // warpgroup 0, for the buffer stats[j % 2]; +inf past S makes P 0 there
+  // warpgroup 0, for the buffer stats[it % 2] of the iteration that takes
+  // it; +inf past S makes P 0 there
   // (TMA's zero fill of Q alone would give exp2(-lse) instead)
   auto load_stat = [&](int j) {
     const int row = (q_first + j) * BM + tid % BM;
     if (row >= S) return tid < BM ? INFINITY : 0.f;
     return tid < BM ? lse[bh * S + row] * LOG2E : di[bh * S + row];
   };
-  if (tid < 2 * BM) stats[tid] = load_stat(0);
+  if (tid < 2 * BM) stats[tid] = load_stat(n_it - 1);
 
   if (tid == 0) {
     mbar_init(bar_kv, 1);
@@ -177,8 +187,10 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   }
   __syncthreads();
   // thread 0 issues every TMA load: K and V once, Q and dO through the ring
-  auto load_q_tile = [&](int j) {
-    const int s = j % STAGES, row0 = (q_first + j) * BM;
+  // the q tiles are walked from the last down to the diagonal: iteration it
+  // takes tile n_it - 1 - it (see the dq order above)
+  auto load_q_tile = [&](int it) {
+    const int s = it % STAGES, row0 = (q_first + n_it - 1 - it) * BM;
     const uint32_t sq = base + L::q + s * 2 * L::QH, sdo = base + L::dout + s * 2 * L::QH;
     mbar_expect_tx(full(s), 4 * L::QH);
     tma_load(sq, &tq, full(s), h, row0, b, 0);
@@ -192,7 +204,7 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     tma_load(base + L::k + L::KH, &tk, bar_kv, h, col0, b, 64);
     tma_load(base + L::v, &tv, bar_kv, h, col0, b, 0);
     tma_load(base + L::v + L::KH, &tv, bar_kv, h, col0, b, 64);
-    for (int j = 0; j < STAGES && j < n_it; ++j) load_q_tile(j);
+    for (int it = 0; it < STAGES && it < n_it; ++it) load_q_tile(it);
   }
 
   const int r_lo = 16 * warp + lane / 4;  // local rows: keys of this warpgroup in S^T, dK, dV; q rows in dQ
@@ -202,20 +214,21 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   const uint32_t k_rows = base + L::k + wg * 64 * ROW, v_rows = base + L::v + wg * 64 * ROW;
   const uint64_t desc_k_mn = mnmajor_desc(base + L::k + wg * L::KH);  // K half wg, all 128 keys, for (5)
   float* dq_bh = dq_acc + bh * n_q * (BM * D);
+  int* sem_bh = sem + bh * n_q;  // dQ halves added to each q tile so far
 
   float acc_dk[64], acc_dv[64];
   zero(acc_dk);
   zero(acc_dv);
 
   mbar_wait(bar_kv, 0);
-  for (int j = 0; j < n_it; ++j) {
-    const int s = j % STAGES;
-    const float next_stat = j + 1 < n_it && tid < 2 * BM ? load_stat(j + 1) : 0.f;  // stored before bar 1
-    const float* lse2 = stats + (j % 2) * 2 * BM;  // visible since the previous tile's bar 1
+  for (int it = 0; it < n_it; ++it) {
+    const int j = n_it - 1 - it, s = it % STAGES;  // j: the q tile, from the CTA's diagonal
+    const float next_stat = it + 1 < n_it && tid < 2 * BM ? load_stat(j - 1) : 0.f;  // stored before bar 1
+    const float* lse2 = stats + (it % 2) * 2 * BM;  // visible since the previous tile's bar 1
     const float* dis = lse2 + BM;
-    mbar_wait(full(s), (j / STAGES) & 1);
+    mbar_wait(full(s), (it / STAGES) & 1);
     const uint32_t sq = base + L::q + s * 2 * L::QH, sdo = base + L::dout + s * 2 * L::QH;
-    unsigned char* sds = smem + L::ds + (j % 2) * L::DS + wg * 64 * ROW;  // this warpgroup's rows of dS^T
+    unsigned char* sds = smem + L::ds + (it % 2) * L::DS + wg * 64 * ROW;  // this warpgroup's rows of dS^T
 
     if (j < wg) {
       // the q tile lies wholly above this warpgroup's keys: dS^T = 0
@@ -293,15 +306,18 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     }
     fence_async_smem();
     // stats[(j+1) % 2] was last read by tile j - 1, before the last bar 1
-    if (j + 1 < n_it && tid < 2 * BM) stats[((j + 1) % 2) * 2 * BM + tid] = next_stat;
-    if (leader) bulk_wait_read<0>();  // this warpgroup's dQ staging half is free again
+    if (it + 1 < n_it && tid < 2 * BM) stats[((it + 1) % 2) * 2 * BM + tid] = next_stat;
+    if (leader && it > 0) {  // the previous tile's add is done: the staging half is free, the next key tile's turn
+      bulk_wait_done();
+      sem_release(sem_bh + q_first + j + 1);
+    }
     asm volatile("bar.sync 1, %0;" ::"n"(NTHREADS) : "memory");  // all of dS^T and the next stats written
 
     // (5) dQ[:, 64wg:] = dS K[:, 64wg:]: A = dS read transposed from dS^T,
     // B = K half wg MN-major; eight k-steps of 16 keys
     float acc_dq[32];
     zero(acc_dq);
-    const uint64_t desc_ds = mnmajor_desc(base + L::ds + (j % 2) * L::DS);
+    const uint64_t desc_ds = mnmajor_desc(base + L::ds + (it % 2) * L::DS);
     wgmma_fence();
     fence_regs(acc_dq);
 #pragma unroll
@@ -313,9 +329,9 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     fence_regs(acc_dv);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
-    if (tid == 0 && j + STAGES < n_it) {  // refill stage s once every warp is done with it
-      mbar_wait(empty(s), (j / STAGES) & 1);
-      load_q_tile(j + STAGES);
+    if (tid == 0 && it + STAGES < n_it) {  // refill stage s once every warp is done with it
+      mbar_wait(empty(s), (it / STAGES) & 1);
+      load_q_tile(it + STAGES);
     }
 
     // dQ to the staging half in 8-column blocks: element (r, c) at
@@ -329,9 +345,11 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     }
     fence_async_smem();
     asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");  // this warpgroup's dQ stores are done
-    if (leader)
+    if (leader) {
+      sem_wait(sem_bh + q_first + j, 2 * kt);  // both halves of key tiles 0 .. kt-1 are added
       bulk_reduce_add(dq_bh + static_cast<long long>(q_first + j) * (BM * D) + wg * (BM * 64),
                       base + L::dq + wg * L::DQ, L::DQ);
+    }
   }
 
   // epilogue: dK and dV in bf16 through the K and V tiles, once both
@@ -352,13 +370,16 @@ attn_bwd_sm90_d128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
       *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(smem + L::v + at);
     }
   }
-  if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");  // the last reduces are done
+  if (leader) {  // the last add (the diagonal tile's) is done: the next key tile's turn
+    bulk_wait_done();
+    sem_release(sem_bh + q_first);
+  }
 }
 
 // ------------------------------------------------------------------- host
 
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse, float* di,
-           float* dq_acc, void* dq, void* dk, void* dv, int B, int H, int S, const long long* st,
+           float* dq_acc, int* sem, void* dq, void* dk, void* dv, int B, int H, int S, const long long* st,
            cudaStream_t stream) {
   using L = Smem;
   const long long contiguous[3] = {static_cast<long long>(S) * H * D, static_cast<long long>(H) * D, D};
@@ -373,6 +394,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   const unsigned row_blocks = static_cast<unsigned>((rows * (D / 8) + 255) / 256);
 
   cudaError_t ce = cudaMemsetAsync(dq_acc, 0, static_cast<size_t>(B) * H * n_q * BM * D * sizeof(float), stream);
+  if (ce == cudaSuccess) ce = cudaMemsetAsync(sem, 0, static_cast<size_t>(B) * H * n_q * sizeof(int), stream);
   if (ce != cudaSuccess) return ce;
   attn_bwd_sm90_pre_kernel<D><<<row_blocks, 256, 0, stream>>>(static_cast<const bf16*>(o),
                                                               static_cast<const bf16*>(dout), di, H, S, rows);
@@ -381,7 +403,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   ce = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (ce != cudaSuccess) return ce;
   kern<<<dim3(H, B, (S + BN - 1) / BN), NTHREADS, L::bytes, stream>>>(
-      tq, tk, tv, tdo, lse, di, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S);
+      tq, tk, tv, tdo, lse, di, dq_acc, sem, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S);
   if ((ce = cudaGetLastError()) != cudaSuccess) return ce;
   attn_bwd_sm90_post_kernel<D, BM><<<row_blocks, 256, 0, stream>>>(dq_acc, static_cast<bf16*>(dq), H, S, rows);
   return cudaGetLastError();
@@ -394,13 +416,16 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 // q, k, v, each a multiple of 8 elements.  o, dout, dq, dk, dv are
 // contiguous [B, S, H, D] bf16; lse and di (written here) contiguous
 // [B, H, S] f32.  dq_acc: f32 scratch of B * H * ceil(S / 64) * 64 * D
-// elements, zeroed here.  Returns 0, a cudaError_t, or an error code of
+// elements, and sem: int scratch of B * H * ceil(S / 64), both zeroed
+// here.  Returns 0, a cudaError_t, or an error code of
 // sm90_common.cuh; rtt_error_string names it.
 extern "C" int rtt_attn_bwd_sm90_d128(int dtype, int Dh, const void* q, const void* k, const void* v, const void* o,
-                                      const void* dout, const float* lse, float* di, float* dq_acc, void* dq, void* dk,
-                                      void* dv, int B, int H, int S, const long long* strides, void* stream) {
+                                      const void* dout, const float* lse, float* di, float* dq_acc, int* sem,
+                                      void* dq, void* dk, void* dv, int B, int H, int S, const long long* strides,
+                                      void* stream) {
   if (dtype != 0 || Dh != D) return cudaErrorInvalidValue;
-  return launch(q, k, v, o, dout, lse, di, dq_acc, dq, dk, dv, B, H, S, strides, static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, o, dout, lse, di, dq_acc, sem, dq, dk, dv, B, H, S, strides,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The main kernel's dynamic shared memory in bytes and how many of its CTAs

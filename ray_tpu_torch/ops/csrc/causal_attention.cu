@@ -6,14 +6,13 @@
 //                       splash_attention_kernel.py:_splash_attention_forward
 //   attn_bwd_kernel  <- same file, _splash_attention_bwd_dkv with
 //                       use_fused_bwd_kernel=True (dq, dk and dv in one kernel)
-// They also serve causal_attention(impl="flash"), whose TPU kernels
-// (flash_attention.py) compute the same function.  For bfloat16 at head
-// dim 64 the forward is attention_fwd_sm90.cu (wgmma, TMA), chosen by
-// ops/attention.py's routing table, and so is the backward
-// (attention_bwd_sm90.cu); at head dim 128 the bf16 forward and backward
-// are attention_fwd_sm90_d128.cu and attention_bwd_sm90_d128.cu.  These
-// kernels take float32 inputs on the model path, and stay built as the
-// yardstick the sm90 kernels are timed against.
+// These kernels are on no route of ops/attention.py: bfloat16 goes to
+// attention_fwd_sm90.cu / attention_bwd_sm90.cu (head dim 64) and their
+// *_d128.cu forms (head dim 128), float32 to attention_fwd_sm90_f32.cu /
+// attention_bwd_sm90_f32.cu.  They stay built as the in-run yardstick the
+// others are timed against, launched directly.  Their backward sums dq by
+// atomicAdd, in the order the CTAs get there, so its dq is not the same
+// from run to run; the routed backwards add dq in a fixed order.
 //
 // Convention (splash's): q arrives pre-scaled by sm_scale, so the kernels
 // compute softmax(q k^T) v with no scale inside, and the residual lse is the

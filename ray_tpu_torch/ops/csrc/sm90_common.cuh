@@ -1,10 +1,12 @@
-// Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (attention_fwd_sm90.cu, attention_bwd_sm90.cu and their head-dim-128
-// forms *_d128.cu): mbarriers, TMA loads, wgmma m64n64k16 and m64n128k16 on
-// bf16 tiles in the 128-byte swizzle, bulk reduce-adds, the backward's
-// pre- and postprocess kernels, and the host's tensor-map encoder.  Each
-// kernel source includes it once; ops/_build.py hashes it with every source
-// that includes it, so an edit rebuilds them.
+// Hopper (sm_90a) building blocks of the port's attention kernels
+// (attention_fwd_sm90.cu, attention_bwd_sm90.cu, their head-dim-128 forms
+// *_d128.cu and their float32 forms *_f32.cu): mbarriers, TMA loads, wgmma
+// m64n64k16 and m64n128k16 on bf16 tiles in the 128-byte swizzle, float32
+// products on the tensor cores in 3xTF32 (mma.sync), bulk reduce-adds, the
+// semaphores that order the backwards' dq adds, the backward's pre- and
+// postprocess kernels, and the host's tensor-map encoder.  Each kernel
+// source includes it once; ops/_build.py hashes it with every source that
+// includes it, so an edit rebuilds them.
 
 #pragma once
 
@@ -191,14 +193,105 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32
                : "memory");
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
-// Until at most N of this thread's bulk groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy reads of it (wgmma operands, bulk copies).
 __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// ------------------------------------------------- dq in a fixed order
+
+// The backwards add each q tile's dQ partial into one f32 sum in a fixed
+// order of key tiles, so that a run's dq does not depend on which CTA gets
+// there first (FlashAttention-3's deterministic backward; splash sums its
+// per-key-block partials in order too).  One int per (batch, head, q tile),
+// zeroed by the entry point, counts the partials already added: the CTA of
+// key tile kt waits until it reads kt (its turn), adds, and bumps it.  A CTA
+// waits only on CTAs of lower key tiles, which the grid (key tile =
+// blockIdx.z, the slowest dimension) launches before it, so every wait ends.
+
+// Until *sem reads at least `turn`.  An acquire at GPU scope, then a proxy
+// fence, so the adds released before the bump are visible to this thread's
+// later loads, reductions and bulk copies.  Traps after seconds instead of
+// hanging the card.
+__device__ __forceinline__ void sem_wait(const int* sem, int turn) {
+  for (uint32_t n = 0;; ++n) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(sem) : "memory");
+    if (v >= turn) break;
+    if (n == (1u << 25)) __trap();
+  }
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+// *sem += 1, releasing at GPU scope the writes this thread made before it
+// (and those of every thread of the CTA that passed a barrier with it since).
+__device__ __forceinline__ void sem_release(int* sem) {
+  asm volatile("fence.acq_rel.gpu;\nred.relaxed.gpu.global.add.s32 [%0], 1;" ::"l"(sem) : "memory");
+}
+// Until this thread's bulk reduce-adds have written device memory (not only
+// read shared memory), then orders those async-proxy writes before the
+// thread's later release: call before sem_release.
+__device__ __forceinline__ void bulk_wait_done() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// ------------------------------------- float32 on the tensor cores (3xTF32)
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits), lo the rest,
+// exact in f32.  lo goes to the tensor core as it is, which reads its top
+// 19 bits (CUTLASS's round-toward-zero for the small part).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// An m16n8k8 A fragment (four elements a thread) and B fragment (two), split.
+// A (row-major 16 x 8): thread (g = lane / 4, t = lane % 4) holds (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8, k by n): (t, g), (t + 4,
+// g); the accumulator (16 x 8): (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1).
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, hi[0], lo[0]);
+    split_tf32(a1, hi[1], lo[1]);
+    split_tf32(a2, hi[2], lo[2]);
+    split_tf32(a3, hi[3], lo[3]);
+  }
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split_tf32(b0, hi[0], lo[0]);
+    split_tf32(b1, hi[1], lo[1]);
+  }
+};
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b in 3xTF32: the small products first, then hi * hi; lo * lo is
+// below f32's rounding and left out.  The arithmetic of SDPA's float32
+// kernel (CUTLASS's OpMultiplyAddFastF32).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// Byte offset of element (r, c) of a float32 tile of R rows that TMA loaded
+// as 32-column boxes (128 bytes a row) in the 128-byte swizzle: box c / 32
+// holds R rows of 128 bytes, and 16-byte chunk (c % 32) / 4 of row r sits at
+// chunk ((c % 32) / 4) ^ (r % 8).  Each box starts on a 1024-byte boundary.
+template <int R>
+__device__ __forceinline__ int f32_at(int r, int c) {
+  return (c >> 5) * (R * 128) + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+template <int R>
+__device__ __forceinline__ float f32_ld(const unsigned char* tile, int r, int c) {
+  return *reinterpret_cast<const float*>(tile + f32_at<R>(r, c));
+}
 
 template <int N>
 __device__ __forceinline__ void zero(float (&r)[N]) {
@@ -286,21 +379,25 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// Tensor map over one [B, S, H, D] bf16 view with element strides (batch,
-// seq, head), dims ordered (D, H, S, B); a box is `rows` rows of one head and
-// `cols` columns (all D when 0; at most 64, one 128-byte swizzle row),
-// 128-byte swizzled.  Rows past S read as zeros.
+// Tensor map over one [B, S, H, D] view (bf16, or float32 when `elem_bytes`
+// is 4)
+// with element strides (batch, seq, head), dims ordered (D, H, S, B); a box
+// is `rows` rows of one head and `cols` columns (all D when 0; at most one
+// 128-byte swizzle row: 64 bf16 or 32 float32), 128-byte swizzled.  Rows
+// past S read as zeros.
 int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int D, const long long* st, int rows,
-             int cols = 0) {
+             int cols = 0, int elem_bytes = 2) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return kNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2, static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * elem_bytes,
+                                 static_cast<cuuint64_t>(st[1]) * elem_bytes,
+                                 static_cast<cuuint64_t>(st[0]) * elem_bytes};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols ? cols : D), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+  const CUtensorMapDataType type = elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);

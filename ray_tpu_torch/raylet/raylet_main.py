@@ -409,6 +409,17 @@ class Raylet:
                         os.kill(int(payload["pid"]), int(payload.get("sig", 9)))
                     except (OSError, ValueError, KeyError):
                         pass  # already gone / malformed: the head's failure detector owns the truth
+                elif (
+                    msg_type == MsgType.PUSH_TASK
+                    and payload.get("directive") == "release_pins"
+                ):
+                    # a worker of this node died: drop its pins in this
+                    # node's store once its process is gone
+                    from ray_tpu_torch.core.shm_store import release_pins_when_gone
+
+                    asyncio.get_running_loop().create_task(
+                        release_pins_when_gone(self.store, int(payload["pid"]))
+                    )
                 elif msg_type == MsgType.OBJECT_PULL:
                     asyncio.get_running_loop().create_task(
                         self._handle_pull(conn, rid, payload)

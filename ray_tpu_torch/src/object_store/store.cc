@@ -10,12 +10,15 @@
 // Create/seal/get/release/delete + LRU eviction of unpinned sealed objects
 // match plasma semantics, deferred delete included: deleting a sealed object
 // that a reader still pins only marks it delete-pending, and the release
-// that drops the last pin frees the block.  Sealed buffers are immutable
+// that drops the last pin frees the block.  Every pin a get takes is kept
+// in a table under its reader's pid, so that when a reader dies holding
+// pins the runtime drops them all (store_release_process), as plasma drops
+// a client's pins when its connection goes.  Sealed buffers are immutable
 // and consumable zero-copy (numpy arrays and CPU tensors over the mapped
 // pages).
 //
 // Layout of the segment:
-//   [Header][Slot * nslots][FreeBlock * MAX_FREE][data region ...]
+//   [Header][Slot * nslots][FreeBlock * MAX_FREE][PinEntry * MAX_PINS][data region ...]
 //
 // Build: g++ -O2 -shared -fPIC -o libray_tpu_torch_store.so store.cc -lpthread
 
@@ -35,6 +38,7 @@ namespace {
 constexpr uint64_t kMagic = 0x7470755f73746f72ULL;  // "tpu_stor"
 constexpr uint32_t kIdLen = 28;
 constexpr uint64_t kMaxFree = 1 << 14;
+constexpr uint64_t kMaxPins = 1 << 16;
 constexpr uint64_t kAlign = 64;
 
 enum SlotState : uint32_t {
@@ -44,9 +48,8 @@ enum SlotState : uint32_t {
   TOMBSTONE = 3,
   // deleted while pinned: invisible to get/contains/create like a
   // tombstone, but its block stays allocated (and counted in used and
-  // num_objects) until the last pin is released.  A reader process that
-  // dies holding a pin never releases it, so its block leaks until the
-  // segment goes.
+  // num_objects) until the last pin is released, by its reader or, when
+  // the reader dies, by store_release_process.
   DELETE_PENDING = 4,
 };
 
@@ -64,6 +67,14 @@ struct FreeBlock {
   uint64_t size;
 };
 
+// The pins one reader process holds on one block: get adds one, release
+// drops one, store_release_process drops them all.
+struct PinEntry {
+  uint64_t seg_off;  // the pinned block, as get returned it
+  int32_t pid;
+  int32_t count;
+};
+
 struct Header {
   uint64_t magic;
   uint64_t capacity;   // data region bytes
@@ -73,6 +84,7 @@ struct Header {
   uint64_t nfree;      // entries in free list
   uint64_t num_objects;
   uint64_t evictions;
+  uint64_t npins;      // entries in the pin table
   pthread_mutex_t mutex;
 };
 
@@ -80,6 +92,7 @@ struct Store {
   Header* hdr;
   Slot* slots;
   FreeBlock* freelist;
+  PinEntry* pins;
   uint8_t* data;
   void* base;
   uint64_t mapped_size;
@@ -206,6 +219,51 @@ void free_block(Store* s, uint64_t offset, uint64_t size) {
   // else: leak the block (bounded by kMaxFree fragmentation; extremely rare)
 }
 
+// The pin table's entry of (block, pid), or null.
+PinEntry* find_pin(Store* s, uint64_t seg_off, int32_t pid) {
+  for (uint64_t i = 0; i < s->hdr->npins; i++) {
+    PinEntry* p = &s->pins[i];
+    if (p->seg_off == seg_off && p->pid == pid) return p;
+  }
+  return nullptr;
+}
+
+// Records one more pin of `pid` on the block.  With the table full the pin
+// has no owner on record: only its own release drops it.
+void add_pin(Store* s, uint64_t seg_off, int32_t pid) {
+  PinEntry* p = find_pin(s, seg_off, pid);
+  if (p) {
+    p->count++;
+  } else if (s->hdr->npins < kMaxPins) {
+    s->pins[s->hdr->npins++] = PinEntry{seg_off, pid, 1};
+  }
+}
+
+void drop_pin(Store* s, uint64_t seg_off, int32_t pid) {
+  PinEntry* p = find_pin(s, seg_off, pid);
+  if (p && --p->count == 0) *p = s->pins[--s->hdr->npins];
+}
+
+// The live or delete-pending slot whose block starts at `seg_off`.
+Slot* slot_of_block(Store* s, uint64_t seg_off) {
+  for (uint64_t i = 0; i < s->hdr->nslots; i++) {
+    Slot* sl = &s->slots[i];
+    if (sl->state != EMPTY && sl->state != TOMBSTONE && segment_offset(s, sl) == seg_off) return sl;
+  }
+  return nullptr;
+}
+
+uint64_t meta_bytes(uint64_t nslots) {
+  return align_up(sizeof(Header) + nslots * sizeof(Slot) + kMaxFree * sizeof(FreeBlock) + kMaxPins * sizeof(PinEntry));
+}
+
+void map_tables(Store* s, uint64_t nslots) {
+  s->slots = (Slot*)((uint8_t*)s->base + sizeof(Header));
+  s->freelist = (FreeBlock*)((uint8_t*)s->slots + nslots * sizeof(Slot));
+  s->pins = (PinEntry*)((uint8_t*)s->freelist + kMaxFree * sizeof(FreeBlock));
+  s->data = (uint8_t*)s->base + meta_bytes(nslots);
+}
+
 void free_slot(Store* s, Slot* sl) {
   free_block(s, sl->offset, align_up(sl->size));
   sl->state = TOMBSTONE;
@@ -237,9 +295,7 @@ extern "C" {
 
 // Create a fresh store segment at `path` (tmpfs file, e.g. /dev/shm/...).
 void* store_create(const char* path, uint64_t capacity, uint64_t nslots) {
-  uint64_t meta = sizeof(Header) + nslots * sizeof(Slot) + kMaxFree * sizeof(FreeBlock);
-  meta = align_up(meta);
-  uint64_t total = meta + capacity;
+  uint64_t total = meta_bytes(nslots) + capacity;
   int fd = open(path, O_RDWR | O_CREAT | O_TRUNC, 0600);
   if (fd < 0) return nullptr;
   if (ftruncate(fd, (off_t)total) != 0) {
@@ -253,9 +309,7 @@ void* store_create(const char* path, uint64_t capacity, uint64_t nslots) {
   s->base = base;
   s->mapped_size = total;
   s->hdr = (Header*)base;
-  s->slots = (Slot*)((uint8_t*)base + sizeof(Header));
-  s->freelist = (FreeBlock*)((uint8_t*)base + sizeof(Header) + nslots * sizeof(Slot));
-  s->data = (uint8_t*)base + meta;
+  map_tables(s, nslots);
   Header* h = s->hdr;
   memset(h, 0, sizeof(Header));
   memset(s->slots, 0, nslots * sizeof(Slot));
@@ -293,10 +347,7 @@ void* store_attach(const char* path) {
   s->base = base;
   s->mapped_size = (size_t)st.st_size;
   s->hdr = h;
-  s->slots = (Slot*)((uint8_t*)base + sizeof(Header));
-  s->freelist = (FreeBlock*)((uint8_t*)base + sizeof(Header) + h->nslots * sizeof(Slot));
-  uint64_t meta = sizeof(Header) + h->nslots * sizeof(Slot) + kMaxFree * sizeof(FreeBlock);
-  s->data = (uint8_t*)base + align_up(meta);
+  map_tables(s, h->nslots);
   return s;
 }
 
@@ -386,7 +437,8 @@ int store_seal(void* sp, const uint8_t* id) {
   return 0;
 }
 
-// Pin + locate a sealed object. 0 ok, -1 missing, -3 not sealed yet.
+// Pin + locate a sealed object, the pin recorded under the caller's pid.
+// 0 ok, -1 missing, -3 not sealed yet.
 int store_get(void* sp, const uint8_t* id, uint64_t* out_offset, uint64_t* out_size) {
   Store* s = (Store*)sp;
   Locker lock(s->hdr);
@@ -395,6 +447,7 @@ int store_get(void* sp, const uint8_t* id, uint64_t* out_offset, uint64_t* out_s
   if (sl->state != SEALED) return -3;
   sl->refcount++;
   sl->lru_tick = ++s->hdr->lru_clock;
+  add_pin(s, segment_offset(s, sl), (int32_t)getpid());
   *out_offset = segment_offset(s, sl);
   *out_size = sl->size;
   return 0;
@@ -409,9 +462,37 @@ int store_release(void* sp, const uint8_t* id, uint64_t seg_off) {
   Slot* sl = find_pinned(s, id, seg_off);
   if (!sl) return -1;
   if (sl->refcount > 0) sl->refcount--;
+  drop_pin(s, seg_off, (int32_t)getpid());
   if (sl->state == DELETE_PENDING && sl->refcount == 0) free_slot(s, sl);
   return 0;
 }
+
+// Drop every pin that process `pid` holds (it died holding them), freeing
+// each delete-pending block whose last pin goes; a block deleted later is
+// freed at once, since nothing pins it any more.  Returns the pins dropped.
+// The caller must know `pid` dead: a live process's views would lose their
+// blocks.
+int store_release_process(void* sp, int32_t pid) {
+  Store* s = (Store*)sp;
+  Locker lock(s->hdr);
+  int dropped = 0;
+  for (uint64_t i = 0; i < s->hdr->npins;) {
+    PinEntry* p = &s->pins[i];
+    if (p->pid != pid) {
+      i++;
+      continue;
+    }
+    Slot* sl = slot_of_block(s, p->seg_off);
+    if (sl) {
+      sl->refcount = sl->refcount > p->count ? sl->refcount - p->count : 0;
+      if (sl->state == DELETE_PENDING && sl->refcount == 0) free_slot(s, sl);
+    }
+    dropped += p->count;
+    *p = s->pins[--s->hdr->npins];
+  }
+  return dropped;
+}
+
 
 int store_contains(void* sp, const uint8_t* id) {
   Store* s = (Store*)sp;

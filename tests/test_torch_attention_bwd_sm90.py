@@ -198,7 +198,7 @@ def _bwd_args(dtype, B=2, S=16, H=3, D=64):
 def test_backward_routes_by_dtype_and_head_dim(fake_libs, dtype, D):
     dq, dk, dv = port.attention_bwd(*_bwd_args(dtype, D=D))
     route = port._BWD_ROUTES[(dtype, D)]
-    assert route == {(torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90_d128"}.get((dtype, D), "wmma")
+    assert route == {(torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90_d128"}.get((dtype, D), "sm90_f32")
     name, entry, counter = port._BWD_KERNELS[route]
     (called, args), = [c for lib in fake_libs.values() for c in lib.calls]
     assert called == entry and fake_libs[name].calls
@@ -233,6 +233,38 @@ def test_sm90_backward_gets_whole_tile_dq_accumulator(fake_libs, monkeypatch, S,
     assert dq_acc.is_contiguous() and port.BWD_SM90_TILE == BM
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64),
+                                     (torch.float32, 128)])
+@pytest.mark.parametrize("S", [100, 128])
+def test_sm90_backwards_get_one_semaphore_per_q_tile(fake_libs, monkeypatch, dtype, D, S):
+    """Every routed backward is handed an int32 semaphore buffer of
+    B * H * ceil(S / 64), one per (batch, head, 64-row q tile), which its
+    entry point zeroes beside dq's f32 sum and its kernel uses to add dq in
+    the order of the key tiles; the float32 one adds into dq itself and is
+    handed no accumulator."""
+    made = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(port.torch, "empty", recording_empty)
+    B, H = 2, 3
+    dq, _, _ = port.attention_bwd(*_bwd_args(dtype, B=B, S=S, H=H, D=D))
+    (_, args), = fake_libs[port._BWD_KERNELS[port._BWD_ROUTES[(dtype, D)]][0]].calls
+    by_ptr = {t.data_ptr(): t for t in made}
+    pointers = [by_ptr.get(a) for a in args[2:-5]]  # q .. dv
+    sems = [t for t in pointers if t is not None and t.dtype == torch.int32]
+    assert len(sems) == 1 and sems[0].shape == (B, H, -(-S // 64)) and sems[0].is_contiguous()
+    sem_at = 2 + next(i for i, t in enumerate(pointers) if t is sems[0])
+    if dtype == torch.float32:
+        assert sem_at == 9 and by_ptr[args[sem_at + 1]] is dq  # ..., di, sem, dq, dk, dv
+    else:
+        assert sem_at == 10 and by_ptr[args[9]].shape == (B, H, -(-S // 64) * 64, D)  # ..., di, dq_acc, sem, dq
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_nonzero_return_raises_and_counts_nothing(fake_libs, dtype):
     name, _, counter = port._BWD_KERNELS[port._BWD_ROUTES[(dtype, 64)]]
@@ -252,11 +284,19 @@ def test_sm90_backward_entry_points_declare_pointers_void_p(monkeypatch):
         monkeypatch.setattr(_build, "load", lambda n: lib)
         port._kernels.__wrapped__(name)
         types = getattr(lib, entry).argtypes
-        # dtype, D; q, k, v, o, do, lse, di, dq_acc, dq, dk, dv; B, H, S; strides; stream
-        assert types[:2] == [ctypes.c_int] * 2 and types[2:13] == [ctypes.c_void_p] * 11
-        assert types[13:16] == [ctypes.c_int] * 3 and types[-1] is ctypes.c_void_p
+        # dtype, D; q, k, v, o, do, lse, di, dq_acc, sem, dq, dk, dv; B, H, S; strides; stream
+        assert types[:2] == [ctypes.c_int] * 2 and types[2:14] == [ctypes.c_void_p] * 12
+        assert types[14:17] == [ctypes.c_int] * 3 and types[-1] is ctypes.c_void_p
         assert getattr(lib, f"{entry}_occupancy").argtypes == [ctypes.c_void_p] * 2
         assert getattr(lib, entry).restype is ctypes.c_int
+    # float32: no dq accumulator (dq is its own f32 sum); the occupancy query takes the head dim
+    lib = type("Lib", (), {e: Fn() for e in [*port._ENTRY_POINTS["attention_bwd_sm90_f32"], "rtt_error_string"]})()
+    monkeypatch.setattr(_build, "load", lambda n: lib)
+    port._kernels.__wrapped__("attention_bwd_sm90_f32")
+    types = lib.rtt_attn_bwd_sm90_f32.argtypes
+    assert types[:2] == [ctypes.c_int] * 2 and types[2:13] == [ctypes.c_void_p] * 11
+    assert types[13:16] == [ctypes.c_int] * 3 and types[-1] is ctypes.c_void_p
+    assert lib.rtt_attn_bwd_sm90_f32_occupancy.argtypes == [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def test_profiler_groups_backward_kernels():
@@ -264,6 +304,8 @@ def test_profiler_groups_backward_kernels():
     for name in ("attn_bwd_sm90_kernel(CUtensorMap_st, ...)", "attn_bwd_sm90_pre_kernel<64>(...)",
                  "attn_bwd_sm90_post_kernel<64, 64>(...)", "attn_bwd_sm90_d128_kernel(CUtensorMap_st, ...)",
                  "attn_bwd_sm90_pre_kernel<128>(...)", "attn_bwd_sm90_post_kernel<128, 64>(...)"):
+        assert group(name) == "attention bwd (port kernel, sm90)"
+    for name in ("void attn_bwd_sm90_f32_kernel<64>(CUtensorMap_st, ...)", "void attn_bwd_sm90_f32_pre_kernel<64>(...)"):
         assert group(name) == "attention bwd (port kernel, sm90)"
     assert group("void attn_bwd_kernel<__nv_bfloat16, 128, 8>(...)") == "attention bwd (port kernel, wmma)"
     assert group("attn_fwd_sm90_kernel(CUtensorMap_st, ...)").startswith("attention fwd")

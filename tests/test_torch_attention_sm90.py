@@ -189,7 +189,7 @@ def test_forward_routes_by_dtype_and_head_dim(fake_libs, dtype, D):
     q = torch.zeros(2, 16, 3, D, dtype=dtype)
     o, lse = port.attention_fwd(q, q, q)
     route = port._FWD_ROUTES[(dtype, D)]
-    assert route == {(torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90_d128"}.get((dtype, D), "wmma")
+    assert route == {(torch.bfloat16, 64): "sm90", (torch.bfloat16, 128): "sm90_d128"}.get((dtype, D), "sm90_f32")
     name, entry, counter = port._FWD_KERNELS[route]
     (called, args), = [c for lib in fake_libs.values() for c in lib.calls]
     assert called == entry and fake_libs[name].calls
@@ -228,3 +228,4 @@ def test_profiler_groups_both_forward_kernels():
     assert profile_train_step.group_of("attn_fwd_sm90_kernel(CUtensorMap_st, ...)").endswith("sm90)")
     assert profile_train_step.group_of("attn_fwd_sm90_d128_kernel(CUtensorMap_st, ...)").endswith("sm90)")
     assert profile_train_step.group_of("void attn_fwd_kernel<__nv_bfloat16, 128, 4>(...)").endswith("wmma)")
+    assert profile_train_step.group_of("void attn_fwd_sm90_f32_kernel<64>(CUtensorMap_st, ...)").endswith("sm90)")

@@ -186,5 +186,5 @@ def test_step_dag_phase_rehearsal(monkeypatch, capsys):
     pe, pd = eager["snap"]["lm"]["params"], dag["snap"]["lm"]["params"]
     assert all((pe[n] == pd[n]).all() for n in pd)
     assert eager["ms_per_step"] > 0 and dag["ms_per_step"] > 0
-    assert cs.FAILED == [f"step DAG (h) {name} launches all on the wmma kernels" for name in ("eager", "dag")], cs.FAILED
+    assert cs.FAILED == [f"step DAG (h) {name} launches all on the sm90_f32 kernels" for name in ("eager", "dag")], cs.FAILED
     capsys.readouterr()

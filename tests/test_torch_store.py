@@ -4,10 +4,18 @@ An owner-driven delete of a sealed object that a reader still pins (a
 zero-copy numpy array from a `get`) only marks it delete-pending; the
 release that drops the last pin frees the block.  Held here at the store
 level, through the port's runtime on the CPU, and, as the fault it repairs,
-against the JAX package's runtime, whose store frees pinned blocks.
+against the JAX package's runtime, whose store frees pinned blocks.  A
+reader that dies holding pins never releases them: the store keeps each pin
+under its reader's pid, and the runtime drops a dead worker's pins
+(`store_release_process`), so its blocks are freed all the same, whether
+the delete came before the death or after it.
 """
 
 import gc
+import os
+import signal
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -122,3 +130,104 @@ def test_reference_runtime_gets_survive_later_results(monkeypatch):
     finally:
         RayConfig.reset()
     assert arr_ok, f"the array got from a task now reads {head}"
+
+
+_READER = """
+import sys, time
+import numpy as np
+from ray_tpu_torch._private.serialization import deserialize
+from ray_tpu_torch.core.shm_store import ShmObjectStore
+store = ShmObjectStore(sys.argv[1], create=False)
+view = deserialize(store.get_serialized(bytes.fromhex(sys.argv[2])))
+print(int(not view.flags.owndata and np.all(view == 7.0)), flush=True)
+time.sleep(600)
+"""
+
+
+@pytest.mark.parametrize("delete_first", [True, False], ids=["delete-then-kill", "kill-then-delete"])
+def test_dead_readers_pins_are_dropped(store, tmp_path, delete_first):
+    """A reader process pins a block zero-copy and is SIGKILLed without a
+    release; store_release_process(pid) drops its pins and frees the block,
+    deleted before the death (then pending) or after it."""
+    assert store.put_serialized(_oid(9), serialize(np.full(BLOCK, 7.0)))
+    used = store.used()
+    reader = subprocess.Popen([sys.executable, "-c", _READER, str(tmp_path / "store"), _oid(9).hex()],
+                              stdout=subprocess.PIPE, text=True)
+    try:
+        assert reader.stdout.readline().strip() == "1"  # a zero-copy view, pinned under the reader's pid
+        assert store.release_process(os.getpid()) == 0  # this process holds no pin
+        if delete_first:
+            store.delete(_oid(9))
+            assert store.used() == used and store.num_objects() == 1  # pending on the reader's pin
+    finally:
+        reader.send_signal(signal.SIGKILL)
+        reader.wait(timeout=TIMEOUT)
+    assert store.release_process(reader.pid) == 1 and store.release_process(reader.pid) == 0
+    if not delete_first:
+        assert store.num_objects() == 1  # nothing pins it now: the delete frees it at once
+        store.delete(_oid(9))
+    assert store.used() == 0 and store.num_objects() == 0
+
+
+def _wait_for(cond, what, timeout=TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.05)
+
+
+def _settled(store, timeout=TIMEOUT):
+    """(used, object count) once two readings 0.5 s apart agree."""
+    deadline = time.monotonic() + timeout
+    last = (store.used(), store.num_objects())
+    while True:
+        time.sleep(0.5)
+        now = (store.used(), store.num_objects())
+        if now == last:
+            return now
+        assert time.monotonic() < deadline, "the store never settled"
+        last = now
+
+
+@pytest.mark.parametrize("delete_first", [True, False], ids=["delete-then-kill", "kill-then-delete"])
+def test_runtime_frees_blocks_a_killed_worker_pinned(delete_first):
+    """Through the runtime: an actor takes a zero-copy array from the store
+    (a task argument, so the actor borrows no ref) and keeps it, is
+    SIGKILLed, the object is deleted (the owner drops its last ref), and
+    the head node's store returns to its earlier used bytes and object
+    count, the delete coming before the death or after it.  Every cluster
+    call carries a timeout."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+
+    ray_tpu_torch.init(num_cpus=2, num_gpus=0)
+    try:
+        @ray_tpu_torch.remote
+        class Reader:
+            def ping(self):
+                return os.getpid()
+
+            def hold(self, arr):
+                self.view = arr
+                return bool(not arr.flags.owndata and np.all(arr == 7.0))
+
+        reader = Reader.remote()
+        pid = ray_tpu_torch.get(reader.ping.remote(), timeout=TIMEOUT)
+        assert pid != os.getpid()
+        store = global_worker.core_worker.store
+        used, objects = _settled(store)  # the ping's own objects are freed in the owner's next batches
+        ref = ray_tpu_torch.put(np.full(1 << 20, 7.0))
+        oid = ref.binary()
+        assert ray_tpu_torch.get(reader.hold.remote(ref), timeout=TIMEOUT)  # zero-copy in the actor
+        assert store.used() > used
+        if delete_first:
+            del ref  # the owner frees it: pending on the actor's pin
+            _wait_for(lambda: not store.contains(oid), "the owner's delete")
+            assert store.used() > used
+        os.kill(pid, signal.SIGKILL)
+        if not delete_first:
+            del ref
+        _wait_for(lambda: store.used() == used and store.num_objects() == objects,
+                  f"the store returns to used={used}, objects={objects}")
+    finally:
+        ray_tpu_torch.shutdown()
