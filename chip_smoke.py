@@ -33,7 +33,9 @@ Phases:
      and batch; (b) 2 warm-up + 10 timed steps at batch 18 on one repeated
      synthetic batch, with the launch counters reset just before and read
      just after; (c) every forward and backward launch of (b) went through
-     the sm90 kernels.  (d) the D=128 path: one forward and backward through
+     the sm90 kernels, one forward per layer and step: GPT2Config's default
+     remat policy "dots" keeps the attention op's outputs (full remat
+     would run two).  (d) the D=128 path: one forward and backward through
      causal_attention at Llama's head dim, counters reset before and read
      after, all on the sm90_d128 kernels.
   5. (e) the product path: ray_tpu_torch.init starts a cluster (head,
@@ -42,7 +44,7 @@ Phases:
      weights and batch in a GPU worker actor, which resets the launch
      counters before its steps, reads them after and reports once.  Checked:
      the worker is another process on this card with no jax or ray_tpu
-     module loaded; 288 forward and 144 backward launches, all on the sm90
+     module loaded; 144 forward and 144 backward launches, all on the sm90
      kernels; its first loss within 1e-3 relative of (b)'s (same weights,
      same batch, same kernels: the forward is the same computation); the
      loss falls; its tokens/s at least 0.9 of (b)'s; a pool task sees
@@ -81,7 +83,9 @@ Phases:
      requests each) every request returns 32 tokens (tokens/s, p50, p99
      printed); summarize_workloads("serve") holds TTFT and TPOT; no process
      of the cluster is left after serve.shutdown() and shutdown().  Every
-     cluster call carries a timeout.
+     cluster call carries a timeout, and every request its own
+     (REQUEST_TIMEOUT_S): a stall prints the deployment's newest stage
+     traces and fails the run.
   8. (h) the step DAG: first the float32 kernels (the sm90_f32 route,
      which float32 compute takes, and the wmma yardstick) at the attention
      of GPT-2 124M at batch 4, B=4 S=1024 H=12 D=64: routed and launched
@@ -100,7 +104,7 @@ Phases:
      counters; its final snapshot (an eager call at the drained step-12
      boundary) reads them.  Checked for each run: the worker is another
      process on this card with no jax or ray_tpu module; it ran under
-     torch's deterministic algorithms; 12 x 24 forward and 12 x 12 backward
+     torch's deterministic algorithms; 12 x 12 forward and 12 x 12 backward
      launches, all sm90_f32; the checkpoint at step 12 with
      Adam's count 12; losses finite (each step draws a fresh batch of random
      tokens, so the loss need not fall).  Across the runs: every loss
@@ -111,6 +115,33 @@ Phases:
      freed by their owner meanwhile, and stay until the views go); no
      process left after shutdown().  Printed: ms/step of each run between
      step completions and their difference.
+  9. (i) the continuous-batching engine (serve/engine/, no attention
+     kernel on its path).  (i1) in this process: Llama-2-7B's full widths
+     with 2 layers in float32 from seed 0, InferenceEngine over
+     ShardedLLM.engine_programs on the card (8 slots, pages of 16, prefill
+     chunks of 32, max_seq_len 256); 12 requests with prompts of 1 to 200
+     tokens and 16 or 32 new tokens submitted at once must each equal
+     ShardedLLM.generate of its prompt alone, with one input shape per
+     program.  (i2) the product path: ray_tpu_torch.init,
+     serve.run(engine_llm_deployment("llama2_7b", ...)) on a GPU replica
+     (bf16 weights from seed 0, as (f) and (g); max_queue 32).  At offered
+     concurrency 4, 16 and 32 (4 x concurrency requests each, every other
+     one through stream_tokens, each drawing one of 8 prompts whose
+     lengths the seed draws in 1..200): tokens/s, p50/p99, the streams'
+     TTFT and TPOT, the pool's pages in use, beside (g)'s numbers; one SSE
+     stream through the proxy; an overload burst that must answer 503
+     with Retry-After; every request bounded as in (g); no process left.
+     Then, with the replica gone, each prompt's direct generate: streamed
+     frames must concatenate to the buffered result, and every request
+     must equal the direct tokens or differ first where the direct path's
+     top-2 logit gap, recomputed in float32, is within bf16's spacing at
+     that logit (2**-7 x |logit|).  Equality is expected: the engine's
+     matmuls (8 slots, 32-token chunks) round as generate's at B=1 do
+     (cuBLAS on the card gives a row the same bits at 1, 8 and 32 rows),
+     and models/llama.py's RMSNorm reduces in an order that does not
+     depend on the row count either: generate at B=8 of one prompt must
+     give its B=1 tokens in every row.  Then the decode program alone,
+     profiled.
 Each phase prints its wall seconds.  Then one JSON line on the kernels (the
 D=64 kernels' launches from (b), error and times from phase 3; the
 sm90_d128 kernels' launches from (f), error and times at the prefill shape
@@ -528,7 +559,7 @@ def slice_phase(att, card):
     ms_step = dt / steps * 1e3
     tok_s = batch * cfg.block_size * steps / dt
     mfu = tok_s * cfg.flops_per_token() / BF16_PEAK_FLOPS
-    print(f"slice GPT-2 124M B={batch} S={cfg.block_size} remat={cfg.remat} on {card}: "
+    print(f"slice GPT-2 124M B={batch} S={cfg.block_size} remat={cfg.remat} policy {cfg.remat_policy!r} on {card}: "
           f"{ms_step:.2f} ms/step, {tok_s:.0f} tokens/s, model FLOP/s {100 * mfu:.2f}% of bf16 peak, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"slice losses {['%.4f' % x for x in losses]}", flush=True)
@@ -538,9 +569,16 @@ def slice_phase(att, card):
     return launches, {"losses": losses, "tokens_per_s": tok_s}
 
 
+def fwd_per_step(cfg):
+    """Forward attention launches per GPT-2 step: one per layer, two under
+    full remat ("dots" and "lite" keep the attention op's outputs)."""
+    full = cfg.remat and cfg.remat_policy not in ("dots", "lite")
+    return (2 if full else 1) * cfg.n_layer
+
+
 def check_launches(what, cfg, launches, total):
     """Every forward and backward launch of `total` steps was on the sm90 kernels."""
-    per_fwd = 2 * cfg.n_layer if cfg.remat else cfg.n_layer  # remat re-runs each forward
+    per_fwd = fwd_per_step(cfg)
     check(f"{what} forward launches", launches["causal_attention_fwd"] == per_fwd * total,
           f"{launches['causal_attention_fwd']} for {total} steps")
     check(f"{what} forward launches on the sm90 kernel",
@@ -726,6 +764,7 @@ LLAMA_ATTN = (1, LLAMA_SEQ, 32, 128)  # B, S, H, D of Llama-2-7B's prefill atten
 LLAMA_LONG_ATTN = (1, 2048, 32, 128)  # at LlamaConfig's default max_seq_len: training and long prefill
 LLAMA_PROMPT = 7  # (f)'s B=1 prompt and (g)'s first request; LLAMA_PROMPT + b is row b at B=8
 SERVE_LOADS = (4, 16, 32)  # offered concurrency, 4 x concurrency requests each (bench_serve.py)
+REQUEST_TIMEOUT_S = 120  # each served request's own limit in (g) and (i): a stall fails the run
 K4_OPS = ("aten::einsum", "aten::softmax", "aten::masked_fill")  # the decode attention over the cache
 
 
@@ -945,12 +984,70 @@ def llama_process_libs(pid):
     return any("/jaxlib/" in p or "/jax/" in p for p in paths), any("libcuda" in p for p in paths)
 
 
-def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=600):
+def stall(what, deployment, detail, handle=None):
+    """A served request outlived its limit: print what the head holds of
+    the deployment's stages (its newest sealed request records, each with
+    its stage durations; a stalled request seals only when it returns) and
+    the engine's state where the deployment runs one, then fail the run."""
+    import ray_tpu_torch
+    from ray_tpu_torch.experimental.state import summarize_workloads
+
+    try:
+        records = [r for r in summarize_workloads("serve", limit=64).get("records", [])
+                   if r.get("name") == f"serve:{deployment}"][-8:]
+        for rec in records:
+            stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in rec.get("durations", {}).items())
+            print(f"{what} stage trace of a recent request: {stages}", flush=True)
+        if handle is not None:
+            stats = ray_tpu_torch.get(handle.method("engine_stats").remote(), timeout=30)
+            print(f"{what} engine state: {stats}", flush=True)
+    except Exception as e:  # noqa: BLE001 -- the report is best-effort; the stall fails the run either way
+        print(f"{what} stage trace unavailable: {type(e).__name__}: {e}", flush=True)
+    check(f"{what} every request answered within {REQUEST_TIMEOUT_S} s", False, detail)
+    raise TimeoutError(f"{what}: {detail}")
+
+
+def served(ref, what, deployment, t_sent, timeout, handle=None):
+    """One served request's result, within `timeout` of when it was sent."""
+    import ray_tpu_torch
+    from ray_tpu_torch.exceptions import GetTimeoutError
+
+    try:
+        return ray_tpu_torch.get(ref, timeout=max(0.0, t_sent + timeout - time.perf_counter()))
+    except GetTimeoutError:
+        stall(what, deployment, f"a request sent {time.perf_counter() - t_sent:.1f} s ago has not returned", handle)
+
+
+def offered_load(conc, total, request, what, deployment, timeout, engine=None):
+    """`total` requests at offered concurrency `conc` (`request(i)` sends the
+    i-th and returns its ref), each bounded by `timeout`: {ref index:
+    (latency s, result)}, and the wall seconds."""
+    import ray_tpu_torch
+
+    done, inflight, i = {}, {}, 0
+    start = time.perf_counter()
+    while len(done) < total:
+        while len(inflight) < conc and i < total:
+            inflight[request(i)] = (i, time.perf_counter())
+            i += 1
+        ready, _ = ray_tpu_torch.wait(list(inflight), num_returns=1, timeout=1.0)
+        for r in ready:
+            idx, t_sent = inflight.pop(r)
+            done[idx] = (time.perf_counter() - t_sent, served(r, what, deployment, t_sent, timeout, engine))
+        oldest = min((t for _, t in inflight.values()), default=time.perf_counter())
+        if time.perf_counter() - oldest > timeout:
+            stall(what, deployment, f"concurrency {conc}: a request sent {time.perf_counter() - oldest:.1f} s ago "
+                  f"has not returned; {len(done)} of {total} answered", engine)
+    return done, time.perf_counter() - start
+
+
+def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=REQUEST_TIMEOUT_S):
     """(g): ray_tpu_torch.init → serve.run(llm_deployment(...)) → handle →
     controller → GPU replica → @serve.batch → ShardedLLM.  `direct_tokens`
     is (f)'s {B: tokens}: one request must equal its B=1 row, and
     LLAMA_BATCH requests sent at once (one batch) each their B=LLAMA_BATCH
-    row.  Returns a report."""
+    row.  Every request must return within `timeout` of being sent.
+    Returns a report."""
     import numpy as np
 
     import ray_tpu_torch
@@ -969,7 +1066,7 @@ def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=6
         dep = llm_deployment(model, max_seq_len=LLAMA_SEQ, new_tokens=LLAMA_NEW, max_batch_size=LLAMA_BATCH,
                              num_gpus=1, device=device)
         handle = serve.run(dep.bind())
-        first = ray_tpu_torch.get(handle.remote(LLAMA_PROMPT), timeout=timeout)
+        first = served(handle.remote(LLAMA_PROMPT), "serve (g)", "llm", time.perf_counter(), timeout)
         report["first_request_s"], report["first"] = time.perf_counter() - t0, first
         info = ray_tpu_torch.get(serve.get_deployment_handle("llm").method("info").remote(), timeout=60)
         jax_mapped, cuda_mapped = llama_process_libs(info["pid"])
@@ -989,7 +1086,7 @@ def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=6
         t_send = time.perf_counter()
         refs = [handle.remote(LLAMA_PROMPT + b) for b in range(LLAMA_BATCH)]
         send_ms = (time.perf_counter() - t_send) * 1e3
-        batch = ray_tpu_torch.get(refs, timeout=timeout)
+        batch = [served(r, "serve (g)", "llm", t_send, timeout) for r in refs]
         report["batch"] = batch
         wrong = [b for b in range(LLAMA_BATCH) if batch[b] != direct_tokens[LLAMA_BATCH][b]]
         print(f"serve (g) {LLAMA_BATCH} requests sent at once (in {send_ms:.1f} ms): rows differing from "
@@ -997,24 +1094,10 @@ def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=6
         check(f"serve (g) {LLAMA_BATCH} requests at once each equal their row of (f)'s B={LLAMA_BATCH} generate",
               not wrong, f"rows {wrong} differ; sent in {send_ms:.1f} ms")
         for conc in SERVE_LOADS:
-            total, lat, bad, inflight, i = 4 * conc, [], 0, {}, 0
-            start = time.perf_counter()
-            while len(lat) + bad < total:
-                while len(inflight) < conc and i < total:
-                    inflight[handle.remote(i)] = time.perf_counter()
-                    i += 1
-                ready, _ = ray_tpu_torch.wait(list(inflight), num_returns=1, timeout=timeout)
-                if not ready:
-                    check(f"serve (g) concurrency {conc} makes progress", False, f"nothing answered in {timeout} s")
-                    break
-                for r in ready:
-                    t_sent = inflight.pop(r)
-                    toks = ray_tpu_torch.get(r, timeout=60)
-                    if len(toks) == LLAMA_NEW:
-                        lat.append(time.perf_counter() - t_sent)
-                    else:
-                        bad += 1
-            dt = time.perf_counter() - start
+            total = 4 * conc
+            done, dt = offered_load(conc, total, handle.remote, "serve (g)", "llm", timeout)
+            lat = [t for t, toks in done.values() if len(toks) == LLAMA_NEW]
+            bad = total - len(lat)
             lat_ms = np.asarray(lat) * 1e3 if lat else np.zeros(1)
             row = {"requests": total, "answered": len(lat), "tokens_per_s": len(lat) * LLAMA_NEW / dt,
                    "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99))}
@@ -1028,7 +1111,7 @@ def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=6
             summary = summarize_workloads("serve")
             if "llm" in summary.get("ttft", {}) and "llm" in summary.get("tpot", {}):
                 break
-            ray_tpu_torch.get(handle.remote(LLAMA_PROMPT), timeout=timeout)
+            served(handle.remote(LLAMA_PROMPT), "serve (g)", "llm", time.perf_counter(), timeout)
             time.sleep(0.3)
         ttft, tpot = summary.get("ttft", {}).get("llm"), summary.get("tpot", {}).get("llm")
         report.update(ttft=ttft, tpot=tpot)
@@ -1044,6 +1127,378 @@ def serve_phase(kind, card, direct_tokens, model=LLAMA, device="cuda", timeout=6
         ray_tpu_torch.shutdown()
     report["seconds"] = time.perf_counter() - t0
     await_no_leftover("serve (g)", cluster, before)
+    return report
+
+
+ENGINE_SLOTS, ENGINE_PAGE, ENGINE_CHUNK = 8, 16, 32  # (i): num_slots, page_size, prefill_chunk
+ENGINE_LENGTHS = (1, 5, 31, 32, 33, 64, 100, 200)  # (i1)'s prompt lengths, repeated to ENGINE_REQUESTS
+ENGINE_REQUESTS = 12  # (i1): submitted at once, 16 or 32 new tokens in turn
+ENGINE_PROMPTS = 8  # (i2): distinct prompts, lengths drawn from the seed in 1..200; each request draws one
+ENGINE_MAX_QUEUE = 32  # (i2)'s admission bound: above concurrency 32 less the 8 slots; the burst overflows it
+ENGINE_SEED = 5
+BF16_EPS = 2.0**-7  # torch.finfo(torch.bfloat16).eps
+
+
+def engine_config(**changes):
+    from ray_tpu_torch.serve.engine import EngineConfig
+
+    return EngineConfig(num_slots=ENGINE_SLOTS, page_size=ENGINE_PAGE, max_seq_len=LLAMA_SEQ,
+                        prefill_chunk=ENGINE_CHUNK, max_new_tokens=LLAMA_NEW, **changes)
+
+
+def top2_gap(model, prompt, tokens, position):
+    """The direct path's choice at `position` of its `tokens` after
+    `prompt`, recomputed in float32 (plain attention): (top-2 logit gap,
+    |top logit|)."""
+    ctx = torch.tensor([list(prompt) + list(tokens[:position])], device=model.device)
+    with torch.no_grad():
+        logits = model_view(model, compute_dtype=torch.float32, attention_impl="xla").apply(ctx)[0, -1].float()
+    top = logits[: model.config.vocab_size].topk(2).values
+    return (top[0] - top[1]).item(), top[0].abs().item()
+
+
+def first_difference(got, want):
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+
+
+def engine_check_phase(card, model=LLAMA, device="cuda"):
+    """(i1): the continuous-batching engine in this process, Llama-2-7B's
+    full widths with 2 layers in float32, seeded weights: ENGINE_REQUESTS
+    requests of mixed prompt lengths submitted at once must each give the
+    tokens of ShardedLLM.generate of its prompt alone, with one input shape
+    per program."""
+    from ray_tpu_torch.serve.engine import InferenceEngine
+    from ray_tpu_torch.serve.llm import ShardedLLM, _resolve_cfg
+
+    device = torch.device(device)
+    cfg = dataclasses.replace(_resolve_cfg(model, LLAMA_SEQ), n_layers=2, compute_dtype=torch.float32,
+                              param_dtype=torch.float32)
+    llm = ShardedLLM(cfg, init="random", seed=0, device=device)
+    rng = np.random.default_rng(ENGINE_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, ENGINE_LENGTHS[i % len(ENGINE_LENGTHS)]).tolist()
+               for i in range(ENGINE_REQUESTS)]
+    news = [(16, 32)[i % 2] for i in range(ENGINE_REQUESTS)]
+    eng = InferenceEngine(llm, engine_config(), deployment="i1")
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, n) for p, n in zip(prompts, news)]
+        outs = [r.sink.result(timeout=REQUEST_TIMEOUT_S) for r in reqs]
+        wall = time.perf_counter() - t0
+        stats, shapes = eng.stats(), eng.compile_stats()
+    finally:
+        eng.shutdown()
+    direct = [llm.generate(np.asarray([p], np.int32), n)[0].tolist() for p, n in zip(prompts, news)]
+    wrong = [i for i in range(ENGINE_REQUESTS) if outs[i] != direct[i]]
+    for i in wrong:
+        pos = first_difference(outs[i], direct[i])
+        gap, top = top2_gap(llm.model, prompts[i], direct[i], pos)
+        print(f"engine (i1) request {i} (prompt {len(prompts[i])}) differs at token {pos}: direct top-2 gap "
+              f"{gap:.3e} at |logit| {top:.3f}", flush=True)
+    tokens = sum(news)
+    print(f"engine (i1) {cfg.dim} wide, {cfg.n_layers} layers, float32, on {card}: {ENGINE_REQUESTS} requests "
+          f"(prompts {[len(p) for p in prompts]}) in {wall:.2f} s, {tokens / wall:.1f} tokens/s, "
+          f"{stats['iterations']:.0f} iterations; pool {stats['pages_total']:.0f} pages of {ENGINE_PAGE}; "
+          f"input shapes per program {shapes}", flush=True)
+    check("engine (i1) every request equals generate of its prompt alone", not wrong,
+          f"requests differing: {wrong}")
+    check("engine (i1) one input shape per program", shapes == {"prefill": 1, "decode": 1}, f"{shapes}")
+    check("engine (i1) pool empty after the run", stats["pages_used"] == 0 and stats["requests_done"] == ENGINE_REQUESTS,
+          f"pages used {stats['pages_used']}, done {stats['requests_done']}")
+    del llm
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def engine_request(handle, prompt, stream, what, timeout):
+    """One request to the engine deployment, buffered or streamed:
+    (tokens, seconds, seconds to the first frame or None, frames)."""
+    t0 = time.perf_counter()
+    if not stream:
+        toks = served(handle.remote({"prompt": prompt}), what, "llm", t0, timeout)
+        return toks, time.perf_counter() - t0, None, 1
+    from ray_tpu_torch.exceptions import EngineStreamError
+
+    toks, first, frames = [], None, 0
+    try:
+        for frame in handle.stream_tokens({"prompt": prompt}, timeout=timeout):
+            first = first or time.perf_counter() - t0
+            toks += frame
+            frames += 1
+            if time.perf_counter() - t0 > timeout:
+                stall(what, "llm", f"a stream open {time.perf_counter() - t0:.1f} s has {len(toks)} tokens")
+    except EngineStreamError as e:
+        if "stalled" not in str(e):
+            raise
+        stall(what, "llm", f"a stream with {len(toks)} tokens: {e}")
+    return toks, time.perf_counter() - t0, first, frames
+
+
+def engine_load(handle, engine, conc, picks, pool, what, timeout):
+    """len(picks) requests at offered concurrency `conc`, every other one
+    streamed; the pool's pages in use sampled meanwhile.  (rows, wall
+    seconds, most pages used)."""
+    import concurrent.futures as cf
+
+    import ray_tpu_torch
+
+    pages = 0.0
+    start = time.perf_counter()
+    with cf.ThreadPoolExecutor(max_workers=conc) as ex:
+        futs = [ex.submit(engine_request, handle, pool[p], i % 2 == 1, what, timeout) for i, p in enumerate(picks)]
+        while not all(f.done() for f in futs):
+            cf.wait(futs, timeout=0.5)
+            stats = ray_tpu_torch.get(engine.method("engine_stats").remote(), timeout=30)
+            pages = max(pages, stats["pages_used"])
+        rows = [(p, i % 2 == 1, *f.result()) for i, (p, f) in enumerate(zip(picks, futs))]
+    return rows, time.perf_counter() - start, pages
+
+
+def sse_request(url, prompt, timeout):
+    """One SSE stream through the proxy: (tokens, frames, saw the done event)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/llm?stream=sse", data=json.dumps({"prompt": prompt}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        ctype, body = r.headers["Content-Type"], r.read().decode()
+    frames = [json.loads(line[len("data: "):])["t"] for line in body.splitlines() if line.startswith('data: {"t"')]
+    return [t for f in frames for t in f], len(frames), ctype.startswith("text/event-stream") and "event: done" in body
+
+
+def overload_burst(handle, url, prompt, what, timeout):
+    """Requests beyond the slots and the admission queue, then one HTTP
+    request while they wait: (its status and Retry-After, answered,
+    rejected with EngineOverloadedError)."""
+    import urllib.error
+    import urllib.request
+
+    from ray_tpu_torch.exceptions import EngineOverloadedError
+    from ray_tpu_torch.serve.handle import _unwrap_cause
+
+    refs, status, deadline = [], None, time.perf_counter() + 30
+    while status != 503 and time.perf_counter() < deadline:
+        t_sent = time.perf_counter()
+        refs += [(handle.remote({"prompt": prompt}), t_sent) for _ in range(2 * ENGINE_SLOTS + ENGINE_MAX_QUEUE)]
+        req = urllib.request.Request(f"{url}/llm", data=json.dumps({"prompt": prompt}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                status, retry = r.status, None
+        except urllib.error.HTTPError as e:
+            status, retry = e.code, e.headers.get("Retry-After")
+    answered = rejected = 0
+    for ref, t_sent in refs:
+        try:
+            served(ref, what, "llm", t_sent, timeout)
+            answered += 1
+        except TimeoutError:
+            raise
+        except Exception as e:  # noqa: BLE001 -- counted: only the typed overload error is expected
+            if _unwrap_cause(e, (EngineOverloadedError,)) is None:
+                raise
+            rejected += 1
+    return status, retry, answered, rejected
+
+
+def percentiles_ms(values):
+    arr = np.asarray(values, dtype=np.float64) * 1e3 if values else np.zeros(1)
+    return float(np.percentile(arr, 50)), float(np.percentile(arr, 99))
+
+
+ENGINE_PROFILE_CTX = 128  # context of every slot in the profiled decode steps
+
+
+def engine_decode_profile(llm, steps=10):
+    """The engine's decode program alone, every slot active at a context of
+    ENGINE_PROFILE_CTX: host ms per step (synchronised), and a
+    torch.profiler run of 3 steps for kernels per step, device busy ms per
+    step, the device's idle share, and the paged attention's share of
+    device time (the gather of each slot's context and its masked softmax:
+    the K4 candidate)."""
+    progs = llm.engine_programs(num_pages=ENGINE_SLOTS * LLAMA_SEQ // ENGINE_PAGE, page_size=ENGINE_PAGE)
+    pages = progs["init"]()
+    per_slot = LLAMA_SEQ // ENGINE_PAGE
+    tables = np.arange(ENGINE_SLOTS * per_slot, dtype=np.int32).reshape(ENGINE_SLOTS, per_slot)
+    tokens = np.full(ENGINE_SLOTS, LLAMA_PROMPT, np.int32)
+    positions = np.full(ENGINE_SLOTS, ENGINE_PROFILE_CTX, np.int32)
+    active = np.ones(ENGINE_SLOTS, bool)
+
+    def step():
+        nxt, _ = progs["decode"](pages, tables, tokens, positions, active)
+        return nxt.cpu()  # the engine's per-step read of the next tokens
+
+    for _ in range(2):
+        step()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if llm.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    from ray_tpu_torch.tools.profile_train_step import busy_us
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+    def dev_ms(row):
+        return getattr(row, "device_time_total", getattr(row, "cuda_time_total", 0.0)) / 1e3
+
+    attn = sum(dev_ms(r) for r in prof.key_averages() if r.key in ENGINE_ATTN_OPS)
+    return {"ms_per_step": ms, "kernels_per_step": len(kernels) / 3, "busy_ms_per_step": busy / 3,
+            "idle_share": 1 - busy / traced_ms if traced_ms else 0.0,
+            "attn_share": attn / device_ms if device_ms else 0.0, "attn_ms_per_step": attn / 3,
+            "pool_bytes": sum(t.numel() * t.element_size() for t in pages)}
+
+
+ENGINE_ATTN_OPS = ("aten::index", "aten::einsum", "aten::softmax", "aten::masked_fill", "aten::repeat_interleave")
+
+
+def engine_serve_phase(kind, card, static, model=LLAMA, device="cuda", timeout=REQUEST_TIMEOUT_S):
+    """(i2): ray_tpu_torch.init → serve.run(engine_llm_deployment(...)) →
+    a GPU replica hosting the engine over Llama-2-7B in bf16 (seed 0, as
+    (f) and (g)).  Buffered calls and stream_tokens in turn at each offered
+    concurrency, an SSE stream through the proxy, an overload burst that
+    must answer 503; every request bounded by `timeout`.  After the
+    cluster is gone, each distinct prompt's direct generate: every served
+    request must equal it, or differ first where the direct path's top-2
+    gap (float32) is within bf16's spacing at that logit.  `static` is
+    (g)'s report, printed beside.  Returns a report."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.experimental.state import summarize_workloads
+    from ray_tpu_torch.serve.llm import ShardedLLM, _resolve_cfg, engine_llm_deployment
+
+    what = "engine (i2)"
+    cfg = _resolve_cfg(model, LLAMA_SEQ)
+    rng = np.random.default_rng(ENGINE_SEED + 1)
+    pool = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in rng.integers(1, 201, ENGINE_PROMPTS)]
+    report, rows = {"loads": {}}, []
+    before = session_processes(os.getpid())
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU", 0)
+        check(f"{what} cluster counts one GPU", gpus == 1, f"cluster_resources GPU = {gpus}")
+        dep = engine_llm_deployment(model, max_seq_len=LLAMA_SEQ, new_tokens=LLAMA_NEW, num_slots=ENGINE_SLOTS,
+                                    page_size=ENGINE_PAGE, prefill_chunk=ENGINE_CHUNK, max_queue=ENGINE_MAX_QUEUE,
+                                    num_gpus=1, device=device)
+        handle = serve.run(dep.bind())
+        engine = serve.get_deployment_handle("llm")
+        rows.append((0, False, *engine_request(handle, pool[0], False, what, timeout)))
+        info = ray_tpu_torch.get(engine.method("info").remote(), timeout=60)
+        jax_mapped, _ = llama_process_libs(info["pid"])
+        print(f"{what} replica pid {info['pid']} (driver {os.getpid()}), device {info['device']}, first request "
+              f"answered {time.perf_counter() - t0:.1f} s after init; pool {info['engine']['pages_total']:.0f} pages of "
+              f"{ENGINE_PAGE} tokens", flush=True)
+        check(f"{what} replica is another process on this card", info["pid"] != os.getpid() and info["device"] == kind,
+              f"pid {info['pid']}, device {info['device']!r}")
+        check(f"{what} replica loads no jax", not jax_mapped, "jax/jaxlib libraries mapped" if jax_mapped else "none")
+        for conc in SERVE_LOADS:
+            picks = rng.integers(0, ENGINE_PROMPTS, 4 * conc).tolist()
+            load, wall, pages = engine_load(handle, engine, conc, picks, pool, what, timeout)
+            rows += load
+            lat = [r[3] for r in load]
+            ttft = [r[4] for r in load if r[4] is not None]
+            tpot = [(r[3] - r[4]) / (len(r[2]) - 1) for r in load if r[4] is not None and len(r[2]) > 1]
+            toks = sum(len(r[2]) for r in load)
+            row = {"requests": len(load), "tokens_per_s": toks / wall, "pages_used_max": pages}
+            row["p50_ms"], row["p99_ms"] = percentiles_ms(lat)
+            row["stream_ttft_p50_ms"], row["stream_ttft_p99_ms"] = percentiles_ms(ttft)
+            row["stream_tpot_p50_ms"], row["stream_tpot_p99_ms"] = percentiles_ms(tpot)
+            report["loads"][conc] = row
+            g = static.get("loads", {}).get(conc, {})
+            print(f"{what} concurrency {conc}: {len(load)} requests (every other streamed) in {wall:.2f} s, "
+                  f"{row['tokens_per_s']:.1f} tokens/s, p50 {row['p50_ms']:.1f} ms, p99 {row['p99_ms']:.1f} ms; "
+                  f"streams: TTFT p50 {row['stream_ttft_p50_ms']:.1f} ms p99 {row['stream_ttft_p99_ms']:.1f} ms, TPOT p50 "
+                  f"{row['stream_tpot_p50_ms']:.2f} ms p99 {row['stream_tpot_p99_ms']:.2f} ms; pages used at most "
+                  f"{pages:.0f}; static (g): {g.get('tokens_per_s', float('nan')):.1f} tokens/s, p50 "
+                  f"{g.get('p50_ms', float('nan')):.1f} ms, p99 {g.get('p99_ms', float('nan')):.1f} ms ({card})", flush=True)
+            check(f"{what} concurrency {conc}: every request answered with {LLAMA_NEW} tokens",
+                  all(len(r[2]) == LLAMA_NEW for r in load), f"{sum(len(r[2]) == LLAMA_NEW for r in load)} of {len(load)}")
+        streams = [r for r in rows if r[1]]
+        check(f"{what} streams arrive in several frames", all(r[5] > 1 for r in streams),
+              f"frames per stream {min(r[5] for r in streams)}..{max(r[5] for r in streams)}")
+        summary = summarize_workloads("serve")
+        ttft, tpot = summary.get("ttft", {}).get("llm"), summary.get("tpot", {}).get("llm")
+        report.update(ttft=ttft, tpot=tpot, engine=summary.get("engine", {}).get("llm"))
+        if ttft and tpot:
+            print(f"{what} summarize_workloads('serve'): TTFT p50 {ttft['p50'] * 1e3:.1f} ms p99 "
+                  f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 {tpot['p50'] * 1e3:.3f} ms p99 {tpot['p99'] * 1e3:.3f} ms; "
+                  f"engine gauges {report['engine']}; static (g): TTFT p50 "
+                  f"{(static.get('ttft') or {}).get('p50', float('nan')) * 1e3:.1f} ms, TPOT p50 "
+                  f"{(static.get('tpot') or {}).get('p50', float('nan')) * 1e3:.3f} ms", flush=True)
+        check(f"{what} TTFT and TPOT in summarize_workloads('serve')", bool(ttft and tpot), f"ttft {ttft}, tpot {tpot}")
+        url = serve.start_http_proxy(0)
+        sse, frames, done = sse_request(url, pool[1], timeout)
+        rows.append((1, True, sse, 0.0, None, frames))
+        check(f"{what} SSE through the proxy: frames, then the done event", done and frames > 1,
+              f"{frames} frames, done event {done}")
+        status, retry, answered, rejected = overload_burst(handle, url, pool[2], what, timeout)
+        print(f"{what} overload burst: HTTP {status} Retry-After {retry}; {answered} answered, {rejected} rejected "
+              f"with EngineOverloadedError (max_queue {ENGINE_MAX_QUEUE})", flush=True)
+        check(f"{what} overload answers 503 with Retry-After and typed rejections",
+              status == 503 and retry is not None and int(retry) >= 1 and rejected > 0,
+              f"HTTP {status}, Retry-After {retry}, {rejected} rejected")
+        stats = ray_tpu_torch.get(engine.method("engine_stats").remote(), timeout=30)
+        report["stats"] = stats
+        check(f"{what} one input shape per program", stats["compile_prefill"] == 1 and stats["compile_decode"] == 1,
+              f"prefill {stats['compile_prefill']}, decode {stats['compile_decode']}")
+        serve.shutdown()
+    finally:
+        cluster = session_processes(global_worker.head_proc.pid)
+        ray_tpu_torch.shutdown()
+    report["seconds"] = time.perf_counter() - t0
+    await_no_leftover(what, cluster, before)
+
+    # the direct path, once the replica has left the card
+    llm = ShardedLLM(cfg, init="random", seed=0, device=device)
+    direct = {p: llm.generate(np.asarray([pool[p]], np.int32), LLAMA_NEW)[0].tolist() for p in sorted({r[0] for r in rows})}
+    # the direct path itself, one prompt in every row of a batch: each row
+    # must be its B=1 tokens (the property the engine's equality rests on)
+    p0 = min(direct)
+    rows8 = llm.generate(np.asarray([pool[p0]] * ENGINE_SLOTS, np.int32), LLAMA_NEW).tolist()
+    moved = [r for r, row in enumerate(rows8) if row != direct[p0]]
+    check(f"{what} generate at B={ENGINE_SLOTS} of one prompt gives its B=1 tokens in every row", not moved,
+          f"rows differing {moved}; first difference {[first_difference(rows8[r], direct[p0]) for r in moved]}")
+    report["decode"] = prof = engine_decode_profile(llm)
+    print(f"{what} decode program alone, {ENGINE_SLOTS} slots at context {ENGINE_PROFILE_CTX} on {card}: "
+          f"{prof['ms_per_step']:.3f} ms/step; profiled: {prof['kernels_per_step']:.0f} kernels/step, device busy "
+          f"{prof['busy_ms_per_step']:.3f} ms/step, idle {prof['idle_share']:.1%} of the traced wall; paged attention "
+          f"({'+'.join(ENGINE_ATTN_OPS)}) {prof['attn_ms_per_step']:.3f} ms/step, {prof['attn_share']:.1%} of device "
+          f"time; pool {prof['pool_bytes'] / 2**30:.3f} GiB", flush=True)
+    served_by = {}
+    for p, stream, toks, *_ in rows:
+        served_by.setdefault(p, {}).setdefault(stream, set()).add(tuple(toks))
+    split = {p: modes for p, modes in served_by.items() if len(modes) == 2 and modes[True] != modes[False]}
+    check(f"{what} streamed frames concatenate to the buffered result", not split,
+          f"prompts where they differ: {sorted(split)}")
+    bad, ties = [], []
+    for p, modes in sorted(served_by.items()):
+        for toks in set().union(*modes.values()):
+            if list(toks) == direct[p]:
+                continue
+            pos = first_difference(toks, direct[p])
+            gap, top = top2_gap(llm.model, pool[p], direct[p], pos)
+            (ties if gap <= BF16_EPS * top else bad).append(p)
+            print(f"{what} prompt {p} ({len(pool[p])} tokens) differs from the direct generate at token {pos}: the "
+                  f"direct path's top-2 gap {gap:.4e} (float32) against bf16's spacing {BF16_EPS * top:.4e} at "
+                  f"|logit| {top:.4f}", flush=True)
+    print(f"{what} {len(rows)} requests over {len(direct)} prompts (lengths {[len(pool[p]) for p in sorted(direct)]}); "
+          f"equal to the direct generate but for {len(ties)} bf16 near-ties; init to shutdown {report['seconds']:.1f} s",
+          flush=True)
+    check(f"{what} every request equals the direct generate, or differs first at a bf16 near-tie", not bad,
+          f"prompts differing beyond bf16's spacing: {bad}")
+    del llm
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
     return report
 
 
@@ -1196,7 +1651,7 @@ def step_dag_phase(kind, card, model=STEP_DAG_MODEL, batch=STEP_DAG_BATCH, seq=S
         cluster = session_processes(global_worker.head_proc.pid)
         ray_tpu_torch.shutdown()
     steps = STEP_DAG_STEPS
-    per_fwd = 2 * cfg.n_layer if cfg.remat else cfg.n_layer
+    per_fwd = fwd_per_step(cfg)
     for name, run in runs.items():
         snap = run["snap"]
         run["ms_per_step"] = ms_per_step(snap["fold_t"])
@@ -1353,7 +1808,7 @@ def main() -> int:
 
     # 7. (g) the product path: serve.run(llm_deployment(...)) on a GPU replica
     with timed("7 (g) serve"):
-        serve_phase(kind, smi, direct_tokens)
+        static = serve_phase(kind, smi, direct_tokens)
 
     # 8. (h) the step DAG: GPT-2 124M in float32 through TorchTrainer's
     # eager per-step path and TrainStepDag, on the sm90_f32 kernels.  Their
@@ -1373,6 +1828,12 @@ def main() -> int:
         f32[name] = {"shape": list(STEP_DAG_ATTN), "dtype": "float32", "max_abs_err": f32_err[name],
                      "ms": f32_times[name], "plain_ms": f32_plain[name], "bound_ms": f32_bounds[name][0],
                      "bound_by": f32_bounds[name][1], "library_ms": f32_library[name]}
+
+    # 9. (i) the continuous-batching engine: (i1) in this process at
+    # Llama-2-7B's widths in float32, (i2) served over Llama-2-7B in bf16
+    with timed("9 (i) engine"):
+        engine_check_phase(smi)
+        engine_serve_phase(kind, smi, static)
 
     return finish(kernel_report(launches, max_err, times, plain, library, bounds, long, f32), kind)
 

@@ -132,8 +132,8 @@ class MsgType(enum.IntEnum):
     DAG_TEARDOWN = 97
     DAG_PUSH = 98
     DAG_STEP = 99
-    # the serve engine's stream negotiation: not ported yet, a worker
-    # answers it with NotImplementedError
+    # the serve engine's token-stream negotiation (attach / cancel) on a
+    # consumer-dialed direct conn (serve/engine/transport.py)
     ENGINE_STREAM = 102
 
     # workload-plane flight records (fire-and-forget, batched, sent only

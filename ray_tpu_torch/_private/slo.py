@@ -94,7 +94,7 @@ def parse_specs(blob) -> List[dict]:
         if "scale_on_slo" in spec:
             raise ValueError(
                 f"SLO {spec['name']!r}: scale_on_slo (the fleet scale directives) is not "
-                "ported yet (ROADMAP, Queue 1: the serve engine)"
+                "ported yet (ROADMAP, Queue 1: The serve fleet plane: scale_on_slo and the fleet directives)"
             )
         out.append(spec)
     return out

@@ -835,11 +835,21 @@ class WorkerRuntime:
                                 rid, await self._dag_runtime.handle_teardown(payload)
                             )
                     elif msg_type == MsgType.ENGINE_STREAM:
-                        # the serve engine is not ported
-                        await conn.reply(
-                            rid, {}, error="NotImplementedError: the serve engine is not "
-                            "ported yet (ROADMAP, Queue 1: the serve engine)",
-                        )
+                        # serve-engine token-stream negotiation: attach a
+                        # dag channel to a live stream / cancel one.  The
+                        # frames themselves then ride DAG_PUSH above.
+                        try:
+                            from ray_tpu_torch.serve.engine import (
+                                transport as engine_transport,
+                            )
+
+                            reply = await engine_transport.handle_frame(payload, conn)
+                        except Exception as e:  # noqa: BLE001 -- reported to the attaching consumer
+                            await conn.reply(
+                                rid, {}, error=f"{type(e).__name__}: {e}"
+                            )
+                        else:
+                            await conn.reply(rid, reply)
             except (asyncio.IncompleteReadError, ConnectionError, OSError):
                 pass
             finally:
@@ -847,6 +857,12 @@ class WorkerRuntime:
                 # channels, return to eager-only service
                 if self._dag_runtime is not None:
                     self._dag_runtime.on_conn_lost(conn)
+                # engine token streams die with their consumer conn too
+                # (writer + shm ring reclaimed there); sys.modules guard so
+                # workers that never streamed don't import the serve engine
+                eng_transport = sys.modules.get("ray_tpu_torch.serve.engine.transport")
+                if eng_transport is not None:
+                    eng_transport.conn_lost(conn)
 
         async def _start():
             server = await asyncio.start_server(_serve, "0.0.0.0", 0)

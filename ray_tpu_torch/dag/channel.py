@@ -164,12 +164,32 @@ class ShmRing:
             time.sleep(0.0002)
         self._publish(seq, blob)
 
+    def write_slot_nowait(self, seq: int, blob: bytes) -> None:
+        """Publish into a slot the caller just confirmed free via
+        ``can_accept(seq)``.  The reader cursor only ever advances, so room
+        cannot vanish between the check and the write — this path never
+        waits, which is what lets the serve engine call it from its io
+        loop (graftsan GS001: ``write_slot`` proper parks in a back-
+        pressure sleep)."""
+        if self._view is None:
+            raise ChannelBrokenError("shm ring closed")
+        self._publish(seq, blob)
+
     def _publish(self, seq: int, blob: bytes) -> None:
         off = self._slot_off(seq)
         self._LEN.pack_into(self._view, off, len(blob))
         start = off + self._LEN.size
         self._view[start : start + len(blob)] = blob
         struct.pack_into("<Q", self._view, 0, seq + 1)  # write_seq: publish
+
+    def can_accept(self, seq: int) -> bool:
+        """Room for slot ``seq`` right now?  Non-blocking capacity probe
+        for producers that must not stall on a slow consumer (the serve
+        engine's token fan-out uses it via ChannelWriter.try_write)."""
+        if self._view is None:
+            raise ChannelBrokenError("shm ring closed")
+        _w, r = self._seqs()
+        return seq - r < self.nslots
 
     def available(self, seq: int) -> bool:
         """Has the producer published slot ``seq`` yet?  The consumer's
@@ -238,6 +258,29 @@ class ChannelWriter:
                 # contiguous in the ring, payload rides the carrier below
                 ring.write_slot(seq, b"")
         self._send_inline(seq, wire, err)
+
+    def try_write(self, seq: int, wire: list, nbytes: int, err: bool = False) -> bool:
+        """Non-blocking ``write``: False when the co-located ring has no
+        room for ``seq`` (the consumer is behind) instead of blocking the
+        producer — a multi-stream producer (the serve engine's token
+        fan-out) retries the stalled stream next iteration rather than
+        head-of-line-blocking every other stream on one slow consumer.
+        The inline/cross-node path always accepts (its buffer is the io
+        queue); raises ChannelBrokenError exactly like ``write``."""
+        if self.broken is not None:
+            raise ChannelBrokenError(f"channel {self.key}: {self.broken}")
+        if self._co_located and self._store is not None:
+            blob = msgpack.packb([err, wire], use_bin_type=True)
+            ring = self._ensure_ring(len(blob))
+            if ring is not None:
+                if not ring.can_accept(seq):
+                    return False
+                if ring.fits(len(blob)):
+                    ring.write_slot_nowait(seq, blob)
+                    return True
+                ring.write_slot_nowait(seq, b"")
+        self._send_inline(seq, wire, err)
+        return True
 
     def _send_inline(self, seq: int, wire: list, err: bool) -> None:
         payload = {"c": self.key, "s": seq, "e": err, "v": wire}

@@ -4402,6 +4402,9 @@ class HeadServer:
                 "lineage": len(self.lineage),
             },
             "dag_channels": {k: dict(v) for k, v in self.dag_channel_stats.items()},
+            # per-deployment paged-KV pool occupancy (the engine's device
+            # memory knob): same gauge families as `summary serve`
+            "serve_engine": self._engine_gauges(),
         }
 
     def _summary_serve(self, limit: int = 0) -> dict:
@@ -4429,10 +4432,33 @@ class HeadServer:
             "summary": summary,
             "ttft": {d: _percentiles(v) for d, v in ttft.items()},
             "tpot": {d: _percentiles(v) for d, v in tpot.items()},
+            "engine": self._engine_gauges(),
             "total_records": len(records),
         }
         if limit > 0:
             out["records"] = records[-limit:]
+        return out
+
+    def _engine_gauges(self) -> dict:
+        """Continuous-batching engine occupancy, read from the replica-
+        published ``ray_tpu_torch_serve_engine_*`` gauge families in the
+        metrics kv namespace (per-process series merged, freshest write
+        wins) — slot/page occupancy and queue depth per deployment for
+        `summary serve|memory`."""
+        from ray_tpu_torch.util import metrics as metrics_mod
+
+        prefix = "ray_tpu_torch_serve_engine_"
+        raw = metrics_mod.raw_records_from_kv(self.kv)
+        engine_raw = {k: v for k, v in raw.items() if k.startswith(prefix)}
+        out: dict = {}
+        for key, rec in sorted(metrics_mod.merge_series(engine_raw).items()):
+            name, _, _ = metrics_mod.parse_series_key(key)
+            tags = dict(rec.get("tags") or {})
+            slot = out.setdefault(tags.pop("deployment", "?"), {})
+            short = name[len(prefix):]
+            if tags:
+                short += ":" + ",".join(f"{v}" for _, v in sorted(tags.items()))
+            slot[short] = rec.get("value", 0.0)
         return out
 
     def _summary_slo(self) -> dict:

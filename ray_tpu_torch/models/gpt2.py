@@ -9,6 +9,19 @@ hand-written CUDA kernels on the card.
 
 Where the JAX model stacks layers and scans over them, this one keeps a
 `ModuleList` of blocks; `models/convert.py` maps between the two layouts.
+Remat follows `remat_policy` as the JAX model's does.  "dots" keeps the
+outputs of the matmuls and both outputs of the attention op (o, lse) and
+recomputes the LayerNorms and the GELU in the backward; "lite" keeps
+everything but the three activations the JAX model names `ln1_out`,
+`ln2_out` and `gelu_out`.  Both come down to the same kept tensors here:
+each LayerNorm or GELU and the linear that consumes it run as one autograd
+Function that keeps the function's input and recomputes its output
+(`_RecomputedInputLinear`), and nothing else is recomputed.  Any other
+policy recomputes the whole block (torch.utils.checkpoint).  Torch's
+selective activation checkpointing (a dispatch mode over every op of the
+block) gave the same kept tensors at a host cost that made the step slower
+than full remat on the card.
+
 Ring attention, pipeline meshes and MoE layers belong to later slices of the
 port and raise NotImplementedError.
 """
@@ -16,6 +29,7 @@ port and raise NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -44,8 +58,7 @@ class GPT2Config:
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     remat: bool = True
-    # "full" | "dots" | "lite" as in the JAX model; all three recompute the
-    # whole block in this port (selective policies are later work)
+    # "dots" | "lite" | anything else (full remat), as in the JAX model
     remat_policy: str = "dots"
     # "auto" | "splash" | "flash": the CUDA kernels on the card; "xla": the
     # plain version.  On the CPU every name runs the plain version.
@@ -109,13 +122,52 @@ class GPT2Config:
         return 6.0 * self.num_params() + attn
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cd: torch.dtype) -> torch.Tensor:
+def _ln(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     """LayerNorm in f32 on f32 master weights, cast to the compute dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, 1e-5).to(cd)
+    return F.layer_norm(x.float(), weight.shape, weight, bias, 1e-5).to(cd)
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cd: torch.dtype) -> torch.Tensor:
+    return _ln(x, ln.weight, ln.bias, cd)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear, cd: torch.dtype) -> torch.Tensor:
     return F.linear(x, lin.weight.to(cd), lin.bias.to(cd))
+
+
+# the policies that keep the matmul and attention outputs ("dots") or all but
+# ln1_out, ln2_out and gelu_out ("lite"); any other recomputes the block
+SELECTIVE_POLICIES = ("dots", "lite")
+
+
+class _RecomputedInputLinear(torch.autograd.Function):
+    """y = linear(f(a, *params), w, b), keeping `a` for the backward instead
+    of f's output: f (a LayerNorm or the GELU) runs again there, the matmul
+    does not.  The linear's gradients are the products autograd's addmm
+    backward takes, in its operand order, so the step's gradients are those
+    of the block without remat, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, f, a, w, b, *params):
+        ctx.f = f
+        ctx.save_for_backward(a, w, *params)
+        return F.linear(f(a, *params), w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, w, *params = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in (a, *params)]
+        with torch.enable_grad():
+            h = ctx.f(*leaves)
+        dy2d = dy.reshape(-1, dy.shape[-1])
+        dw = dy2d.t().mm(h.detach().reshape(-1, h.shape[-1]))
+        dh = dy2d.mm(w).view(h.shape)
+        grads = torch.autograd.grad(h, leaves, dh)
+        return None, grads[0], dw, dy2d.sum(0), *grads[1:]
 
 
 class GPT2Block(nn.Module):
@@ -138,8 +190,7 @@ class GPT2Block(nn.Module):
         cd = cfg.compute_dtype
         B, S, E = x.shape
         H, D = cfg.n_head, cfg.head_dim
-        h = _layer_norm(x, self.ln1, cd)
-        q, k, v = _linear(h, self.qkv, cd).split(E, dim=-1)
+        q, k, v = self._norm_linear(x, self.ln1, self.qkv).split(E, dim=-1)
         attn = causal_attention(
             q.reshape(B, S, H, D),
             k.reshape(B, S, H, D),
@@ -148,9 +199,24 @@ class GPT2Block(nn.Module):
             scores_dtype=cfg.attn_scores_dtype,
         )
         x = x + _linear(attn.reshape(B, S, E), self.proj, cd)
-        h = _layer_norm(x, self.ln2, cd)
-        h = F.gelu(_linear(h, self.mlp_in, cd), approximate="tanh")
-        return x + _linear(h, self.mlp_out, cd)
+        h = self._norm_linear(x, self.ln2, self.mlp_in)
+        if self._selective:
+            return x + _RecomputedInputLinear.apply(_gelu, h, self.mlp_out.weight.to(cd), self.mlp_out.bias.to(cd))
+        return x + _linear(_gelu(h), self.mlp_out, cd)
+
+    @property
+    def _selective(self) -> bool:
+        return self.config.remat and self.config.remat_policy in SELECTIVE_POLICIES
+
+    def _norm_linear(self, x: torch.Tensor, ln: nn.LayerNorm, lin: nn.Linear) -> torch.Tensor:
+        """linear(LayerNorm(x)); under "dots" and "lite" the LayerNorm's
+        output is recomputed in the backward instead of kept."""
+        cd = self.config.compute_dtype
+        if self._selective:
+            return _RecomputedInputLinear.apply(
+                functools.partial(_ln, cd=cd), x, lin.weight.to(cd), lin.bias.to(cd), ln.weight, ln.bias
+            )
+        return _linear(_layer_norm(x, ln, cd), lin, cd)
 
 
 class GPT2Model(nn.Module):
@@ -205,7 +271,7 @@ class GPT2Model(nn.Module):
         cfg = self.config
         x = self._embed(tokens, wte_cd)
         for blk in self.blocks:
-            if cfg.remat:
+            if cfg.remat and cfg.remat_policy not in SELECTIVE_POLICIES:
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)

@@ -10,13 +10,21 @@ and the layers stacked on a leading [n_layers] axis, so
 `models/convert.py` moves a JAX parameter pytree into `LlamaModel` leaf by
 leaf.  Training and a whole-prompt forward (`apply`, `loss`) attend through
 `ops.attention.causal_attention`, which launches the hand-written CUDA
-kernels on the card (head dim 128: `causal_attention.cu`).  The decode path
-(`decode_step`) attends with a masked f32 softmax over the contiguous KV
-cache, as the JAX model does: no TPU kernel computes it there.
+kernels on the card (head dim 128: `attention_fwd_sm90_d128.cu` and its
+backward).  The decode path (`decode_step`) attends with a masked f32
+softmax over the contiguous KV cache, as the JAX model does: no TPU kernel
+computes it there.
 
 The paged programs of the continuous-batching engine (`init_pages`,
-`decode_step_paged`, `prefill_chunk_paged`) belong to the serve-engine
-slice of the port.
+`decode_step_paged`, `prefill_chunk_paged`) keep the JAX model's page-table
+contract: one pool pair [L, num_pages, page_size, KV, D], tables of
+physical page ids with -1 for an unallocated page, attention over each
+slot's gathered context with a -1e30 mask (`valid_ctx`).  The pool is
+written in place.  The small integer inputs (tables, tokens, positions,
+flags) arrive as host arrays, as the engine builds them; the write and
+gather indices are derived from them on the host, so that rows to drop
+(inactive slots, unallocated pages, a chunk's padding) are left out
+before anything reaches the device, and cross in one copy.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -92,9 +101,18 @@ class LlamaConfig:
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in f32; the result stays f32 (callers cast)."""
+    """RMSNorm in f32; the result stays f32 (callers cast).
+
+    The mean of squares is a mean of 64 means (each division by a power
+    of two is exact), so the dim must be a multiple of 64.  With one long
+    reduction a row, the rounding depended on how many rows the call held:
+    in bf16 a sequence decoded alone (`generate` at B=1) and beside others
+    (B=8, or the engine's slots and prefill chunks) drifted apart within
+    5-20 tokens on the H100.  With two short ones the engine's tokens and
+    generate's at B=1 and B=8 were equal there."""
     x32 = x.float()
-    return x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps) * scale
+    ms = (x32 * x32).unflatten(-1, (64, -1)).mean(-1).mean(-1, keepdim=True)
+    return x32 * torch.rsqrt(ms + eps) * scale
 
 
 def _rope_tables(positions: torch.Tensor, d: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -289,3 +307,172 @@ class LlamaModel(nn.Module):
             x = self._layer(x, self._layer_params(li), rope, (ck_all, cv_all, li), position, future)
         x = _rms_norm(x, self.final_norm.float(), cfg.norm_eps).to(cd)
         return (x @ self.out_head.to(cd))[:, 0, :], cache
+
+    # -------------------------------------------------- paged decode (engine)
+
+    def init_pages(self, num_pages: int, page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Physical KV page pool shared by every engine slot: a
+        [L, num_pages, page_size, KV, D] pair in compute_dtype, zeroed."""
+        cfg = self.config
+        shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        return (
+            torch.zeros(shape, dtype=cfg.compute_dtype, device=self.device),
+            torch.zeros(shape, dtype=cfg.compute_dtype, device=self.device),
+        )
+
+    def _paged_write(self, buf: torch.Tensor, li: int, write, vals: torch.Tensor) -> None:
+        """Write the kept rows of `vals` [N, KV, D] into layer li of the
+        pool, in place.  `write` = (rows, page, offset): the rows to keep
+        and their targets; the others (the reference's out-of-range rows,
+        dropped by its scatter) never reach the pool."""
+        rows, wpage, woff = write
+        buf[li, wpage, woff] = vals[rows].to(buf.dtype)
+
+    def _paged_context(self, buf: torch.Tensor, li: int, gpage: torch.Tensor, goff: torch.Tensor) -> torch.Tensor:
+        """A slot's logical context [*, T, KV, D] gathered from layer li
+        (indices clipped into the pool; rows past a slot's context are
+        masked by valid_ctx)."""
+        return buf[li, gpage, goff]
+
+    def _paged_attend(self, q, keys, vals, valid_ctx):
+        """Masked attention over gathered paged context: q [B, S, H, D];
+        keys/vals [B, T, KV, D]; valid_ctx [B, S, T] bool."""
+        cfg = self.config
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if KV != H:
+            keys = keys.repeat_interleave(H // KV, dim=2)
+            vals = vals.repeat_interleave(H // KV, dim=2)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, keys).float() * (D**-0.5)
+        scores = scores.masked_fill(~valid_ctx[:, None], -1e30)
+        probs = torch.softmax(scores, dim=-1).to(cfg.compute_dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, vals)
+
+    def _paged_layer(self, x, lp, li, rope, pages, write, gpage, goff, valid_ctx):
+        """One block over the paged KV: write this step's K/V into the
+        pool, gather each slot's logical context, attend.  x [B, S, E]
+        (decode: B = slots, S = 1; prefill chunk: B = 1, S = chunk)."""
+        cfg = self.config
+        cd = cfg.compute_dtype
+        B, S, E = x.shape
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kp, vp = pages
+
+        h = _rms_norm(x, lp["attn_norm"].float(), cfg.norm_eps).to(cd)
+        q = (h @ lp["wq"].to(cd)).reshape(B, S, H, D)
+        k = (h @ lp["wk"].to(cd)).reshape(B, S, KV, D)
+        v = (h @ lp["wv"].to(cd)).reshape(B, S, KV, D)
+        q = _apply_rope(q, *rope)
+        k = _apply_rope(k, *rope)
+
+        self._paged_write(kp, li, write, k.reshape(-1, KV, D))
+        self._paged_write(vp, li, write, v.reshape(-1, KV, D))
+        keys = self._paged_context(kp, li, gpage, goff)
+        vals = self._paged_context(vp, li, gpage, goff)
+        if keys.dim() == 3:  # single-slot prefill: add the batch dim
+            keys, vals = keys[None], vals[None]
+        attn = self._paged_attend(q, keys, vals, valid_ctx).reshape(B, S, E)
+        x = x + attn @ lp["wo"].to(cd)
+
+        h = _rms_norm(x, lp["ffn_norm"].float(), cfg.norm_eps).to(cd)
+        gate = F.silu(h @ lp["w_gate"].to(cd))
+        up = h @ lp["w_up"].to(cd)
+        return x + (gate * up) @ lp["w_down"].to(cd)
+
+    def _sample_greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """argmax with the vocab padding masked to -inf (a padded id must
+        never enter a sequence)."""
+        cfg = self.config
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -torch.inf)
+        return logits.argmax(-1)
+
+    def _paged_run(self, pages, tokens, positions, write, gpage, goff, valid_ctx) -> torch.Tensor:
+        """Embed, run every layer over the pool, final norm: [B, S, E]."""
+        cfg = self.config
+        cd = cfg.compute_dtype
+        x = F.embedding(tokens, self.tok_emb).to(cd)
+        rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        for li in range(cfg.n_layers):
+            x = self._paged_layer(x, self._layer_params(li), li, rope, pages, write, gpage, goff, valid_ctx)
+        return _rms_norm(x, self.final_norm.float(), cfg.norm_eps).to(cd)
+
+    @torch.no_grad()
+    def decode_step_paged(self, pages, tables, tokens, positions, active, page_size: int):
+        """One engine iteration: decode one token for every active slot.
+
+        pages: (k_pages, v_pages) [L, NP, PS, KV, D] on the model's device,
+        written in place; host arrays: tables [S, MP] (physical page per
+        logical page, -1 unallocated), tokens [S] (the token each slot
+        feeds), positions [S] (the cache index it is written at), active
+        [S] bool.  Returns (the next tokens [S] on the device, greedy with
+        the vocab padding masked, and the pool)."""
+        tables = np.asarray(tables, np.int64)
+        positions = np.asarray(positions, np.int64)
+        active = np.asarray(active, bool)
+        S, MP = tables.shape
+        NP = pages[0].shape[1]
+        T = MP * page_size
+        # write target: one pool row per slot; inactive slots and table
+        # misses are left out
+        wpage = tables[np.arange(S), np.clip(positions // page_size, 0, MP - 1)]
+        rows = np.flatnonzero(active & (wpage >= 0))
+        # gather map: logical context index j -> (physical page, offset)
+        j = np.arange(T)
+        gpage = tables[:, j // page_size]
+        valid_ctx = (gpage >= 0) & (j[None, :] <= positions[:, None]) & active[:, None]
+        tok, pos, rows, wp, wo, gp, go, valid = _to_device(
+            self.device, tokens, positions, rows, wpage[rows], positions[rows] % page_size,
+            np.clip(gpage, 0, NP - 1), np.broadcast_to(j % page_size, (S, T)), valid_ctx[:, None, :],
+        )
+        x = self._paged_run(pages, tok[:, None], pos[:, None], (rows, wp, wo), gp, go, valid.bool())
+        logits = (x @ self.out_head.to(self.config.compute_dtype))[:, 0, :]
+        return self._sample_greedy(logits), pages
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, pages, table_row, tokens, start_pos, n_valid, page_size: int):
+        """One chunk of one slot's prompt: write positions start_pos ..
+        start_pos + n_valid - 1 into the pool and return the greedy next
+        token after the chunk's last valid position (the request's first
+        generated token on its final chunk), a device scalar, and the pool.
+
+        Host arrays: tokens [C] (a tail chunk padded; the padding masked by
+        n_valid), table_row [MP]; start_pos, n_valid ints.  C is fixed, so
+        a prompt of any length runs as ceil(P / C) calls of one shape."""
+        table_row = np.asarray(table_row, np.int64)
+        C = len(tokens)
+        (MP,) = table_row.shape
+        NP = pages[0].shape[1]
+        T = MP * page_size
+        start_pos, n_valid = int(start_pos), int(n_valid)
+
+        pos = start_pos + np.arange(C)
+        valid_q = np.arange(C) < n_valid
+        wpage = table_row[np.clip(pos // page_size, 0, MP - 1)]
+        rows = np.flatnonzero(valid_q & (wpage >= 0))
+        j = np.arange(T)
+        gpage = table_row[j // page_size]
+        # causal over the slot's logical context, chunk included (K/V land
+        # in the pool before the gather)
+        valid_ctx = (gpage[None, :] >= 0) & (j[None, :] <= pos[:, None]) & valid_q[:, None]
+        tok, posd, rows, wp, wo, gp, go, valid = _to_device(
+            self.device, tokens, pos, rows, wpage[rows], pos[rows] % page_size,
+            np.clip(gpage, 0, NP - 1), j % page_size, valid_ctx[None],
+        )
+        x = self._paged_run(pages, tok[None], posd[None], (rows, wp, wo), gp, go, valid.bool())
+        last = min(max(n_valid - 1, 0), C - 1)
+        logits = x[0, last] @ self.out_head.to(self.config.compute_dtype)
+        return self._sample_greedy(logits), pages
+
+
+def _to_device(device: torch.device, *arrays) -> Tuple[torch.Tensor, ...]:
+    """Host integer (or bool) arrays as int64 tensors on `device`, in one
+    copy: concatenated, sent, split and reshaped."""
+    arrays = [np.asarray(a) for a in arrays]
+    flat = torch.from_numpy(np.concatenate([a.astype(np.int64).ravel() for a in arrays]))
+    flat = flat.to(device, non_blocking=True)
+    out, at = [], 0
+    for a in arrays:
+        out.append(flat[at : at + a.size].view(a.shape))
+        at += a.size
+    return tuple(out)

@@ -16,7 +16,10 @@ run to run, as the reference's are.  `csrc/causal_attention.cu` (WMMA) is
 on no route: it is built and launched directly as the yardstick the other
 kernels are timed against.  Only
 `impl="xla"` names the plain version, the port of `_xla_causal_attention`.
-On a CPU tensor every impl runs the plain version.
+On a CPU tensor every impl runs the plain version.  Every impl but "xla"
+goes through one `torch.library` custom op, `ray_tpu_torch::causal_attention`
+(`ATTENTION_OP`), returning (o, lse): a dispatcher op that a remat policy
+can see, whose outputs the fused backward reads.
 
 Layout: [batch, seq, heads, head_dim] in and out, as in the JAX package.
 The kernels read q, k and v through their strides, so the views that come
@@ -107,13 +110,17 @@ def plain_causal_attention(
     """Plain PyTorch causal attention (port of `_xla_causal_attention`):
     scores in `scores_dtype`, a -1e30 mask, an f32 softmax cast back to q's
     dtype.  The reference the kernels are held against."""
+    probs = torch.softmax(_plain_scores(q, k, sm_scale, scores_dtype).float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _plain_scores(q, k, sm_scale: float, scores_dtype: torch.dtype) -> torch.Tensor:
+    """Scaled scores [B, H, S, S] in `scores_dtype`, the future masked to -1e30."""
     S = q.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(scores_dtype), k.to(scores_dtype))
     scores = scores * torch.tensor(sm_scale, dtype=scores_dtype)
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return scores.masked_fill(~mask, -1e30)
 
 
 _P, _I, _STRIDES = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
@@ -264,21 +271,68 @@ def attention_bwd(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torc
     return _launch_bwd(_BWD_ROUTES[(q.dtype, q.shape[-1])], q, k, v, o, lse, do)
 
 
-class _CausalAttention(torch.autograd.Function):
-    """Kernel forward saving (q, k, v, o, lse), as splash names its
-    residuals; the backward is the fused kernel and never re-runs the
-    forward (a remat'ed layer recomputes the forward itself)."""
+def _plain_fwd(q, k, v, sm_scale: float, scores_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the forward kernel: `plain_causal_attention`'s
+    output and the natural-log logsumexp [B, H, S] f32 of its scaled, masked
+    scores."""
+    scores = _plain_scores(q, k, sm_scale, scores_dtype).float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v), torch.logsumexp(scores, dim=-1)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        q, k, v = (_vector_ready(t) for t in (q, k, v))
-        o, lse = attention_fwd(q, k, v)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        return attention_bwd(*ctx.saved_tensors, do)
+@torch.library.custom_op("ray_tpu_torch::causal_attention", mutates_args=())
+def _attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, scores_dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal attention as one dispatcher op returning (o, lse), so that a
+    remat policy can keep both outputs instead of re-running the forward
+    kernel.  This body is the plain version (a CPU tensor); on a CUDA
+    tensor the kernel registered below runs.  The backward
+    (`_attention_backward`) is the fused kernel and never re-runs the
+    forward."""
+    return _plain_fwd(q, k, v, sm_scale, scores_dtype)
+
+
+def _scaled(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    # splash's convention: q pre-scaled in its own dtype, lse of scaled scores
+    return _vector_ready(q * torch.tensor(sm_scale, dtype=q.dtype))
+
+
+@_attention_op.register_kernel("cuda")
+def _attention_op_cuda(q, k, v, sm_scale, scores_dtype):
+    return attention_fwd(_scaled(q, sm_scale), _vector_ready(k), _vector_ready(v))
+
+
+@_attention_op.register_fake
+def _attention_op_fake(q, k, v, sm_scale, scores_dtype):
+    B, S, H, D = q.shape
+    return q.new_empty((B, S, H, D)), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, sm_scale, scores_dtype = inputs
+    ctx.sm_scale, ctx.scores_dtype = sm_scale, scores_dtype
+    ctx.save_for_backward(q, k, v, *output)
+
+
+def _attention_backward(ctx, do, _dlse):
+    """The fused backward kernel from the saved (q, k, v, o, lse); q's
+    pre-scale is redone (one elementwise pass) and its gradient scaled
+    back, as autograd scaled it when the pre-scale sat outside the op.  On
+    a CPU tensor, the plain version's gradients."""
+    q, k, v, o, lse = ctx.saved_tensors
+    if q.device.type == "cuda":
+        dqs, dk, dv = attention_bwd(_scaled(q, ctx.sm_scale), _vector_ready(k), _vector_ready(v), o, lse, do)
+        return dqs * torch.tensor(ctx.sm_scale, dtype=q.dtype), dk, dv, None, None
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = plain_causal_attention(*leaves, ctx.sm_scale, ctx.scores_dtype)
+        return (*torch.autograd.grad(out, leaves, do), None, None)
+
+
+_attention_op.register_autograd(_attention_backward, setup_context=_attention_setup)
+# the op as the dispatcher (and a TorchDispatchMode) sees it
+ATTENTION_OP = torch.ops.ray_tpu_torch.causal_attention.default
 
 
 def _check_kernel_inputs(q, k, v) -> None:
@@ -317,11 +371,10 @@ def causal_attention(
         raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if impl == "xla" or q.device.type == "cpu":
+    if impl == "xla":
         return plain_causal_attention(q, k, v, sm_scale, scores_dtype)
-    if q.device.type != "cuda":
+    if q.device.type == "cuda":
+        _check_kernel_inputs(q, k, v)
+    elif q.device.type != "cpu":
         raise ValueError(f"causal_attention runs on cuda or cpu tensors, not {q.device.type}")
-    _check_kernel_inputs(q, k, v)
-    # splash's convention: q pre-scaled in its own dtype, lse of scaled scores
-    qs = q * torch.tensor(sm_scale, dtype=q.dtype)
-    return _CausalAttention.apply(qs, k, v)
+    return _attention_op(q, k, v, float(sm_scale), scores_dtype)[0]

@@ -277,12 +277,73 @@ class HTTPProxy:
                 request.query.get("stream") == "sse"
                 or "text/event-stream" in request.headers.get("Accept", "")
             ):
-                # Server-Sent Events token streams belong to the
-                # continuous-batching engine, not ported yet
-                return web.Response(
-                    status=501,
-                    text="serve engine token streams are not ported yet",
+                # continuous-batching engine deployments stream tokens as
+                # Server-Sent Events: one `data:` frame per token batch,
+                # first frame before generation completes (the dag-channel
+                # token stream under handle.stream_tokens).  Admission
+                # overload sheds BEFORE the stream opens: 503 +
+                # Retry-After, the bounded failure mode.
+                from ray_tpu_torch.exceptions import EngineStreamError
+
+                loop = asyncio.get_running_loop()
+                it = handle.stream_tokens(body)
+
+                def _next():
+                    try:
+                        return next(it)
+                    except StopIteration:
+                        return _STREAM_END
+
+                try:
+                    first = await loop.run_in_executor(self._stream_executor, _next)
+                except Exception as e:  # noqa: BLE001 -- status line not sent yet: map to HTTP
+                    retry = _overload_retry_after(e)
+                    if retry is not None:
+                        return web.Response(
+                            status=503,
+                            headers={"Retry-After": str(max(1, int(retry)))},
+                            text="engine admission queue full",
+                        )
+                    return web.Response(status=500, text=f"stream failed: {e}")
+                resp = web.StreamResponse(
+                    headers={
+                        "Content-Type": "text/event-stream",
+                        "Cache-Control": "no-cache",
+                    }
                 )
+                await resp.prepare(request)
+                try:
+                    chunk = first
+                    while chunk is not _STREAM_END:
+                        await resp.write(
+                            (f"data: {json.dumps({'t': chunk})}\n\n").encode()
+                        )
+                        chunk = await loop.run_in_executor(
+                            self._stream_executor, _next
+                        )
+                    await resp.write(b"event: done\ndata: {}\n\n")
+                except Exception as e:  # noqa: BLE001 -- headers sent: the error travels as a typed SSE event
+                    kind = (
+                        "stream_error"
+                        if isinstance(e, EngineStreamError)
+                        else type(e).__name__
+                    )
+                    try:
+                        await resp.write(
+                            (
+                                "event: error\ndata: "
+                                + json.dumps({"error": str(e), "type": kind})
+                                + "\n\n"
+                            ).encode()
+                        )
+                    except Exception:
+                        pass
+                    it.close()
+                try:
+                    await resp.write_eof()
+                except Exception:  # noqa: BLE001 -- client hung up mid-stream; nothing left to send
+                    pass
+                return resp
 
             if request.query.get("stream") == "1":
                 # generator deployments stream over HTTP as NDJSON lines

@@ -278,7 +278,9 @@ class ServeController:
         # a poller thread piggybacks replica load snapshots onto routing
         # publishes (least-pressure routing needs a fleet-wide view the
         # per-client inflight counter can't give).  The head's SLO scale
-        # directives (serve:fleet) wait for the serve-engine slice.
+        # directives (serve:fleet) wait for the serve fleet plane (ROADMAP,
+        # Queue 1: The serve fleet plane: scale_on_slo and the fleet
+        # directives).
         try:
             self._start_load_poller()
         except Exception:

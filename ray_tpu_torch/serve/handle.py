@@ -16,11 +16,11 @@ LongPollClient, _private/long_poll.py:67).  Fleet behaviors live here
 - routing is power-of-two-choices least-pressure over local in-flight +
   fleet-reported queue depth and KV-page pressure, locality as tiebreak;
 - all replicas saturated raises a typed ``DeploymentBackpressureError``
-  (the proxy maps it to 503 + Retry-After) instead of over-admitting.
-
-``stream_tokens`` (the continuous-batching engine's token streams, with
-mid-stream failover) waits for the serve-engine slice of the port and
-raises NotImplementedError.
+  (the proxy maps it to 503 + Retry-After) instead of over-admitting;
+- ``stream_tokens`` fails over mid-stream: a dead replica's stream is
+  resubmitted to a survivor and resumed from the delivered-token
+  frontier with duplicates suppressed (greedy decoding makes the replay
+  bit-identical), so clients see a latency blip, not an error.
 """
 
 from __future__ import annotations
@@ -29,6 +29,72 @@ import itertools
 import random
 import threading
 from typing import Any, Dict, List
+
+_FAILOVER_ATTEMPTS = 3  # replica deaths one stream absorbs before erroring
+
+# process-wide failover counter: handles live in driver/proxy processes
+_failovers_counter = None
+_failovers_lock = threading.Lock()
+
+
+def _count_failover(deployment: str):
+    global _failovers_counter
+    try:
+        with _failovers_lock:
+            if _failovers_counter is None:
+                from ray_tpu_torch.util import metrics as metrics_mod
+
+                _failovers_counter = metrics_mod.Counter(
+                    "ray_tpu_torch_serve_fleet_failovers_total",
+                    description="mid-stream replica failovers (handle resubmits)",
+                    tag_keys=("deployment",),
+                )
+        _failovers_counter.inc(1.0, tags={"deployment": deployment})
+    except Exception:
+        pass  # metrics plane down: the failover itself still happened
+
+
+def _fleet_event(message: str, **fields):
+    """source=serve_fleet timeline event, fire-and-forget (failover is a
+    data-path action — bookkeeping must not add a blocking head RPC)."""
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.protocol import MsgType
+
+    try:
+        cw = worker_mod._require_connected()
+    except Exception:
+        return
+    payload = {
+        "severity": "WARNING",
+        "source": "serve_fleet",
+        "message": message,
+        "fields": fields,
+    }
+
+    async def _send():
+        try:
+            await cw.conn.send(MsgType.RECORD_EVENT, payload)
+        except (ConnectionError, OSError):
+            pass
+
+    try:
+        cw.io.spawn(_send())
+    except Exception:  # event bookkeeping is best-effort; the failover already landed
+        pass
+
+
+def _unwrap_cause(exc, types, limit: int = 8):
+    """First exception of `types` on the cause chain (RayTaskError keeps
+    the remote exception under .cause; __cause__ covers local re-raises).
+    Same walk the proxy uses for Retry-After extraction."""
+    e, seen = exc, 0
+    while e is not None and seen < limit:
+        if isinstance(e, types):
+            return e
+        e = getattr(e, "cause", None) or getattr(e, "__cause__", None)
+        seen += 1
+    return None
+
 
 def _rebuild_handle(name: str) -> "DeploymentHandle":
     from ray_tpu_torch.serve.api import get_deployment_handle
@@ -265,13 +331,163 @@ class DeploymentHandle:
         """
         return self.method("__call__").stream(*args, **kwargs)
 
-    def stream_tokens(self, prompt, *, max_new_tokens=None, eos_token=None, timeout: float = 600.0):
-        """Token streams from a continuous-batching engine deployment: not
-        ported yet (the engine needs compiled-DAG channels)."""
-        raise NotImplementedError(
-            "serve engine token streams are not ported yet (ROADMAP, Queue 1: "
-            "the serve engine, engine_llm_deployment and the paged programs)"
+    def stream_tokens(
+        self,
+        prompt,
+        *,
+        max_new_tokens=None,
+        eos_token=None,
+        timeout: float = 600.0,
+    ):
+        """Stream token frames from a continuous-batching engine
+        deployment (serve/engine/): yields lists of token ids AS THE
+        ENGINE PRODUCES THEM — the first frame lands after the prompt's
+        final prefill chunk, long before the sequence completes.
+
+        Transport: one ``engine_stream_start`` actor call, then frames
+        ride a dag channel straight from the replica (shm ring when
+        co-located — no per-token RPC, no head hop).  Falls back to
+        pulling the stream's outbox over the normal actor-call path when
+        the direct transport is unavailable (client mode, feature off).
+
+        Mid-stream replica death FAILS OVER (serve/FLEET.md): the
+        ORIGINAL request is resubmitted to a surviving replica and the
+        first ``delivered`` tokens of the replay are suppressed — greedy
+        decoding over identical weights makes them bit-identical, so the
+        resumed stream continues exactly where the dead one stopped.  A
+        replica-local overload or drain rejection retries the
+        next-least-loaded sibling without counting as a failover.  Only
+        when no survivor remains does the typed error (``EngineStream
+        Error`` / ``DeploymentBackpressureError``) reach the caller."""
+        from ray_tpu_torch.exceptions import (
+            DeploymentBackpressureError,
+            EngineOverloadedError,
+            EngineStreamError,
+            RayActorError,
+            ReplicaDrainingError,
+            WorkerCrashedError,
         )
+
+        delivered = 0
+        excluded = set()
+        failovers = 0
+        last_err = None
+        while True:
+            try:
+                rid, replica = self._pick_replica(exclude=frozenset(excluded))
+            except DeploymentBackpressureError:
+                if last_err is not None:
+                    raise last_err  # survivors exhausted: the stream death wins
+                raise
+            try:
+                skip = delivered
+                for frame in self._stream_once(
+                    replica, prompt, max_new_tokens, eos_token, timeout
+                ):
+                    if skip:
+                        # resumed stream: drop the already-delivered
+                        # prefix (bit-identical replay under greedy)
+                        if skip >= len(frame):
+                            skip -= len(frame)
+                            continue
+                        frame = frame[skip:]
+                        skip = 0
+                    delivered += len(frame)
+                    yield frame
+                return
+            except GeneratorExit:
+                raise  # consumer walked away: no retry on its behalf
+            except Exception as e:
+                retriable = _unwrap_cause(
+                    e, (EngineOverloadedError, ReplicaDrainingError)
+                )
+                if retriable is not None and delivered == 0:
+                    # admission-time rejection: try the next-least-loaded
+                    # sibling before shedding — a single replica's
+                    # overload is a routing miss, not a fleet 503
+                    excluded.add(rid)
+                    last_err = e
+                    continue
+                # WorkerCrashedError: the kill landed while the replica
+                # was still executing the submission call itself — same
+                # death, earlier phase, same failover
+                dead = _unwrap_cause(
+                    e,
+                    (
+                        EngineStreamError,
+                        RayActorError,
+                        WorkerCrashedError,
+                        ConnectionError,
+                    ),
+                )
+                if dead is None or failovers >= _FAILOVER_ATTEMPTS:
+                    raise
+                failovers += 1
+                excluded.add(rid)
+                last_err = e
+                self._stale.set()  # membership likely changed: re-pull
+                _count_failover(self._name)
+                _fleet_event(
+                    f"serve fleet failover: {self._name} stream resumed at "
+                    f"token {delivered}",
+                    deployment=self._name,
+                    delivered=delivered,
+                    attempt=failovers,
+                    error=type(dead).__name__,
+                )
+            finally:
+                self._release(rid)
+
+    def _stream_once(self, replica, prompt, max_new_tokens, eos_token, timeout):
+        """One streaming attempt against ONE replica; yields token-id
+        lists.  Replica death surfaces as a raised typed error — the
+        failover loop in stream_tokens owns retries and accounting."""
+        import ray_tpu_torch
+        from ray_tpu_torch.exceptions import EngineStreamError
+        from ray_tpu_torch.serve import tracing as serve_tracing
+        from ray_tpu_torch.serve.engine import transport as engine_transport
+
+        trace = serve_tracing.new_request(self._name)
+        serve_tracing.stamp(trace, "serve_route")
+        kwargs = {"max_new_tokens": max_new_tokens, "eos_token": eos_token}
+        if trace is not None:
+            kwargs["_serve_trace"] = trace
+        start = ray_tpu_torch.get(
+            replica.handle_request.remote("engine_stream_start", (prompt,), kwargs),
+            timeout=600,
+        )
+        try:
+            ts = engine_transport.open_token_stream(replica, start, timeout=timeout)
+        except EngineStreamError:
+            ts = None  # no direct transport here: pull path below
+        if ts is not None:
+            yield from ts
+            return
+        sid = start["sid"]
+        finished = False
+        try:
+            while True:
+                frames, done = ray_tpu_torch.get(
+                    replica.handle_request.remote("engine_stream_next", (sid,), {}),
+                    timeout=timeout,
+                )
+                for f in frames:
+                    if f.get("error"):
+                        finished = True
+                        raise EngineStreamError(str(f["error"]))
+                    if f.get("t"):
+                        yield list(f["t"])
+                    if f.get("done"):
+                        finished = True
+                if finished or done:
+                    return
+        finally:
+            if not finished:
+                # abandoned mid-stream: free the replica-side request
+                try:
+                    replica.handle_request.remote("engine_stream_cancel", (sid,), {})
+                except Exception:
+                    pass
 
     def method(self, method_name: str):
         handle = self

@@ -155,13 +155,27 @@ _buf: List[dict] = []
 _last_flush = 0.0
 
 
-def finish_request(trace: Optional[dict], error: bool = False) -> None:
+def defer_finish(trace: Optional[dict]) -> None:
+    """Hand sealing ownership to a later finisher: the continuous-batching
+    engine's requests OUTLIVE the actor method that submitted them (the
+    handler returns while tokens still stream), so the replica's
+    handle_request ``finally`` must not seal the record — the engine does,
+    at retirement, with ``finish_request(trace, final=True)``."""
+    if trace is not None:
+        trace["_deferred"] = True
+
+
+def finish_request(trace: Optional[dict], error: bool = False, final: bool = False) -> None:
     """Seal a request record (stamps serve_handler_end, derives
     TTFT/TPOT) and buffer it; a full or stale buffer ships as one
-    SERVE_TRACE frame.  Idempotent: a record seals exactly once."""
+    SERVE_TRACE frame.  Idempotent: a record seals exactly once (the
+    engine path has two finishers — the submitting handler's ``finally``
+    and the engine's retirement — ``_deferred``/``_sealed`` arbitrate)."""
     global _buf, _last_flush
     if trace is None or trace.get("_sealed"):
         return
+    if trace.get("_deferred") and not final:
+        return  # the engine owns this record's seal
     trace["_sealed"] = True
     trace["phases"]["serve_handler_end"] = time.time()
     trace["error"] = bool(error)

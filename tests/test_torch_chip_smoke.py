@@ -188,3 +188,30 @@ def test_step_dag_phase_rehearsal(monkeypatch, capsys):
     assert eager["ms_per_step"] > 0 and dag["ms_per_step"] > 0
     assert cs.FAILED == [f"step DAG (h) {name} launches all on the sm90_f32 kernels" for name in ("eager", "dag")], cs.FAILED
     capsys.readouterr()
+
+
+def test_engine_phase_rehearsal(monkeypatch, capsys):
+    """Phase (i) on the CPU at the `tiny` config: (i1) the engine in this
+    process on mixed prompt lengths against generate, one shape per
+    program; (i2) the served engine (a cluster counting one logical GPU,
+    the replica a GPU worker on the CPU) under the three loads, buffered and
+    streamed, an SSE stream, the overload burst's 503, then the direct
+    generate.  On the CPU every check passes: no kernel is on this path."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_GPUS", "1")
+    tiny = LlamaConfig.tiny(param_dtype=torch.bfloat16)
+    cs.engine_check_phase("cpu", model=tiny, device="cpu")
+    assert cs.FAILED == []
+    static = {"loads": {c: {"tokens_per_s": 1.0, "p50_ms": 1.0, "p99_ms": 1.0} for c in cs.SERVE_LOADS}}
+    report = cs.engine_serve_phase("cpu", "cpu", static, model=tiny, device="cpu", timeout=120)
+    assert cs.FAILED == []
+    assert set(report["loads"]) == set(cs.SERVE_LOADS)
+    for row in report["loads"].values():
+        assert row["requests"] > 0 and row["tokens_per_s"] > 0 and row["pages_used_max"] > 0
+    assert report["stats"]["compile_prefill"] == 1 and report["stats"]["pages_used"] == 0
+    assert report["ttft"]["count"] >= 1 and report["engine"]["kv_pages:total"] > 0
+    capsys.readouterr()

@@ -136,8 +136,10 @@ def test_http_proxy(cluster):
 
 
 def test_http_engine_stream_is_not_ported(cluster):
-    """Server-Sent Events token streams are the serve engine's: the proxy
-    answers 501, and the handle's stream_tokens raises."""
+    """Server-Sent Events token streams are the serve engine's (ported:
+    tests/test_torch_serve_engine.py).  A deployment that hosts no engine
+    has none to stream: the proxy answers 500 at once, and the handle's
+    stream_tokens raises the replica's AttributeError, typed."""
 
     @serve.deployment(name="sse_echo")
     def sse_echo(x):
@@ -147,8 +149,9 @@ def test_http_engine_stream_is_not_ported(cluster):
     url = serve.start_http_proxy(port=0)
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(url + "/sse_echo?stream=sse", 1)
-    assert err.value.code == 501
-    with pytest.raises(NotImplementedError, match="serve engine"):
+    assert err.value.code == 500
+    assert err.value.read().decode().startswith("stream failed")
+    with pytest.raises(AttributeError, match="engine_stream_start"):
         next(handle.stream_tokens(1))
 
 

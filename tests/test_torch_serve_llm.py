@@ -27,6 +27,7 @@ from ray_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from ray_tpu.models.llama import LlamaModel as JaxLlamaModel
 from ray_tpu.serve.llm import ShardedLLM as JaxShardedLLM
 from ray_tpu_torch import serve
+from ray_tpu_torch._private.slo import parse_specs
 from ray_tpu_torch.models.convert import llama_params_from_jax
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.serve import llm as llm_mod
@@ -91,8 +92,8 @@ def test_param_count_and_shard_stats():
 def test_not_ported_paths_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ShardedLLM(_cfg(), tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="serve engine"):
-        llm_mod.engine_llm_deployment("tiny")
+    with pytest.raises(ValueError, match="The serve fleet plane: scale_on_slo and the fleet directives"):
+        parse_specs([{"name": "ttft", "kind": "latency", "metric": "m", "threshold_ms": 1, "scale_on_slo": "llm"}])
     with pytest.raises(ValueError):
         ShardedLLM(_cfg(), init="zeros", device="cpu")
 
