@@ -142,6 +142,32 @@ Phases:
      depend on the row count either: generate at B=8 of one prompt must
      give its B=1 tokens in every row.  Then the decode program alone,
      profiled.
+ 10. (j) RLlib's on-policy family (no kernel of its own: the CNN runs on
+     cuDNN, the heads on cuBLAS).  (j1) the PPO learner on the card
+     against the same learner on the CPU: TorchPolicy with the nature CNN
+     at 84x84x4, 3 actions, float32 with TF32 off, lr 3e-4, the same
+     converted weights (a JAX-layout tree from a seed through
+     rllib_params_from_jax), 800 rows of the env's frames,
+     learn_on_loaded_batch with minibatch 200 and 2 epochs: the first
+     minibatch's gradient within 1e-4 of its norm, the metrics within 1e-3
+     relative, the learned action probabilities within 1e-3 and values
+     within 2e-2 of the largest; the parameters' difference printed (see
+     rllib_learner_phase); the learner's parameters on the card.  (j2)
+     ray_tpu_torch.init, then PPO at bench_rllib.py's configuration
+     (SyntheticPixelEnv, 2 rollout workers x 32 envs x 50 steps, 3200 rows
+     an iteration, minibatch 800, 2 epochs, lr 1e-3, torch's default TF32
+     for cuDNN), each worker granted and running RL_WORKER_CPUS threads:
+     one warm-up and 5 timed iterations (env-steps/s; rollout, transfer,
+     host-to-device and learning seconds an iteration), one iteration
+     under torch.profiler (the device's idle share), and the learner-only
+     rate (load_batch + learn_on_loaded_batch on a fixed batch, as
+     bench_rllib.py).  Checked: losses finite; the rollout workers are
+     other processes that see no card, run their granted threads and have
+     no jax or ray_tpu module; the learner's parameters on the card.  (j3)
+     IMPALA and APPO on the same env at 2 x 8 envs, 3 iterations of 4
+     learner updates: every update on the card, the count reached, losses
+     finite, no learner error; no process left after shutdown().  Every
+     cluster call carries a timeout (RL_TIMEOUT_S).
 Each phase prints its wall seconds.  Then one JSON line on the kernels (the
 D=64 kernels' launches from (b), error and times from phase 3; the
 sm90_d128 kernels' launches from (f), error and times at the prefill shape
@@ -1702,6 +1728,284 @@ def step_dag_phase(kind, card, model=STEP_DAG_MODEL, batch=STEP_DAG_BATCH, seq=S
     return runs
 
 
+RL_OBS = (84, 84, 4)  # SyntheticPixelEnv's frames: Atari's preprocessed geometry, uint8
+RL_ACTIONS = 3
+RL_WORKERS, RL_ENVS, RL_FRAGMENT = 2, 32, 50  # (j2): bench_rllib.py's configuration, 3200 rows an iteration
+RL_MINIBATCH, RL_SGD_ITERS, RL_LR = 800, 2, 1e-3  # (j2), bench_rllib.py's
+RL_TIMED_ITERS = 5  # (j2): after one warm-up iteration
+RL_LEARNER_CALLS = 10  # (j2): load_batch + learn_on_loaded_batch on one fixed batch, as bench_rllib.py
+RL_WORKER_CPUS = 2  # CPUs (and torch threads) of each rollout worker: the fastest of 1, 2, 3, 8 (tools/rllib_rollout_threads.py)
+RL_CHECK_ROWS, RL_CHECK_MINIBATCH = 800, 200  # (j1): 2 epochs of 4 minibatches
+RL_CHECK_LR = 3e-4  # (j1): TorchPolicy's default
+RL_ASYNC_ENVS, RL_ASYNC_BATCHES, RL_ASYNC_ITERS = 8, 4, 3  # (j3): per worker; learner updates per iteration
+RL_TIMEOUT_S = 300  # every cluster call of (j)
+
+
+def jax_layout_cnn(model, seed):
+    """A CNN parameter tree in the JAX package's layout (HWIO convs, [in,
+    out] dense, the trunk's rows in NHWC flatten order), drawn from
+    `seed` with the reference's scales: what `JaxPolicy.get_weights()`
+    returns, made without JAX."""
+    rng = np.random.default_rng(seed)
+
+    def dense(fan_in, fan_out, scale=2.0):
+        return {"w": rng.standard_normal((fan_in, fan_out), np.float32) * np.float32((scale / fan_in) ** 0.5),
+                "b": np.zeros(fan_out, np.float32)}
+
+    convs, c_in = [], model.obs_shape[-1]
+    for c_out, k, _s in model.conv_filters:
+        w = rng.standard_normal((k, k, c_in, c_out), np.float32) * np.float32((2.0 / (k * k * c_in)) ** 0.5)
+        convs.append({"w": w, "b": np.zeros(c_out, np.float32)})
+        c_in = c_out
+    return {"conv": convs, "trunk": dense(int(np.prod(model.out_hwc)), model.hidden),
+            "pi": dense(model.hidden, model.num_actions, 0.02), "vf": dense(model.hidden, 1, 1.0)}
+
+
+def pixel_batch(rows, seed, frames="env"):
+    """A PPO batch of `rows` rows from `seed`: the env's frames under random
+    actions (frames="env"), or uniform noise frames (bench_rllib.py's
+    learner-only batch)."""
+    from ray_tpu_torch.rllib import SyntheticPixelEnv
+    from ray_tpu_torch.rllib.sample_batch import ACTIONS, ADVANTAGES, LOGPS, OBS, RETURNS, SampleBatch
+
+    rng = np.random.default_rng(seed)
+    if frames == "env":
+        env = SyntheticPixelEnv(num_envs=32, seed=seed)
+        obs = [env.reset(seed=seed)]
+        while len(obs) * 32 < rows:
+            obs.append(env.step(rng.integers(0, RL_ACTIONS, 32))[0])
+        obs = np.concatenate(obs)[:rows]
+    else:
+        obs = rng.integers(0, 256, (rows, *RL_OBS), dtype=np.uint8)
+    return SampleBatch({
+        OBS: obs,
+        ACTIONS: rng.integers(0, RL_ACTIONS, rows),
+        LOGPS: np.full(rows, np.log(1 / RL_ACTIONS), np.float32),
+        ADVANTAGES: rng.standard_normal(rows).astype(np.float32),
+        RETURNS: rng.standard_normal(rows).astype(np.float32),
+    })
+
+
+def rllib_learner_phase(card, device="cuda", model=None, rows=RL_CHECK_ROWS):
+    """(j1): the PPO learner on the card against the same learner on the
+    CPU: nature-CNN TorchPolicy at 84x84x4, 3 actions, float32 with TF32
+    off, the same converted weights, one seeded batch of env frames;
+    learn_on_loaded_batch, minibatch 200, 2 epochs.  Checked: the first
+    minibatch's gradient within 1e-4 of its norm, the last minibatch's
+    metrics within 1e-3 relative, and the learned policy on the batch's
+    rows: action probabilities within 1e-3, values within 2e-2 of their
+    largest magnitude.  The parameters' differences are printed, not held
+    to 1e-5: Adam's step lr * g / (|g| + 1e-8) moves an element whose
+    float32 gradient is rounding noise near 1e-8 by up to 2 lr, and every
+    later step carries it on.  On these inputs the port's own float32 and
+    float64 learners on the CPU differ by 1.864e-3 (34,244 elements above
+    1e-5, the update 0.86% apart in norm), their probabilities by 4.7e-5
+    and values by 8.5e-4 of the largest."""
+    from ray_tpu_torch.models.convert import rllib_params_from_jax
+    from ray_tpu_torch.rllib import TorchPolicy
+    from ray_tpu_torch.rllib.sample_batch import OBS, SampleBatch
+
+    cfg = dict(obs_shape=RL_OBS, num_actions=RL_ACTIONS, lr=RL_CHECK_LR, model_config={"type": "cnn", **(model or {})})
+    learner, host = TorchPolicy(device=device, **cfg), TorchPolicy(device="cpu", **cfg)
+    weights = rllib_params_from_jax(jax_layout_cnn(host.model, seed=0), host.model)
+    learner.model.load_state_dict(weights)
+    host.model.load_state_dict(weights)
+    batch = pixel_batch(rows, seed=1)
+    # the first minibatch of learn_on_loaded_batch(seed=0)'s first call
+    first = np.random.default_rng(0).permutation(rows)[:RL_CHECK_MINIBATCH]
+    g_dev, _ = learner.compute_grads(SampleBatch({k: v[first] for k, v in batch.items()}))
+    g_cpu, _ = host.compute_grads(SampleBatch({k: v[first] for k, v in batch.items()}))
+    g_err = float(np.linalg.norm(g_dev.astype(np.float64) - g_cpu) / np.linalg.norm(g_cpu.astype(np.float64)))
+    m_dev = learner.learn_on_loaded_batch(learner.load_batch(batch), 2, RL_CHECK_MINIBATCH)
+    m_cpu = host.learn_on_loaded_batch(host.load_batch(batch), 2, RL_CHECK_MINIBATCH)
+    m_err = max(abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu)
+    with torch.no_grad():
+        obs = torch.from_numpy(batch[OBS])
+        (l_dev, v_dev), (l_cpu, v_cpu) = learner.model(obs.to(device)), host.model(obs)
+        p_err = float((torch.softmax(l_dev.cpu().double(), -1) - torch.softmax(l_cpu.double(), -1)).abs().max())
+        v_err = float((v_dev.cpu().double() - v_cpu).abs().max() / v_cpu.abs().max())
+    w_dev, w_cpu = learner.get_weights(), host.get_weights()
+    diff = np.concatenate([(w_dev[n].astype(np.float64) - w_cpu[n]).ravel() for n in w_cpu])
+    update = np.concatenate([(w_cpu[n].astype(np.float64) - weights[n].numpy()).ravel() for n in w_cpu])
+    on_card = {p.device.type for p in learner.model.parameters()}
+    print(f"rllib (j1) nature CNN learner on {device} vs the CPU (TF32 off, lr {RL_CHECK_LR}): first minibatch's "
+          f"gradient error {g_err:.3e} of its norm; after {rows} rows x 2 epochs: action probabilities {p_err:.3e} "
+          f"apart, values {v_err:.3e} of the largest, metrics {m_err:.3e}; parameters max |diff| "
+          f"{np.abs(diff).max():.3e}, {int((np.abs(diff) > 1e-5).sum())} of {diff.size} above 1e-5, the update "
+          f"{np.linalg.norm(diff) / np.linalg.norm(update):.3e} apart in norm; metrics {m_dev} vs {m_cpu}", flush=True)
+    check("rllib (j1) learner's parameters on the card", on_card == {device}, f"{on_card}")
+    check("rllib (j1) first minibatch's gradient within 1e-4 of its norm", g_err <= 1e-4, f"{g_err:.3e}")
+    check("rllib (j1) metrics within 1e-3 relative", m_err <= 1e-3, f"{m_err:.3e}")
+    check("rllib (j1) learned action probabilities within 1e-3", p_err <= 1e-3, f"{p_err:.3e}")
+    check("rllib (j1) learned values within 2e-2 of the largest", v_err <= 2e-2, f"{v_err:.3e}")
+    return {"grad_err": g_err, "metric_err": m_err, "prob_err": p_err, "value_err": v_err,
+            "param_err": float(np.abs(diff).max())}
+
+
+def rllib_worker_checks(what, infos, worker_cpus):
+    for info in infos:
+        forbidden = sorted(m for m in info["modules"] if m in ("jax", "jaxlib", "ray_tpu"))
+        print(f"{what} rollout worker pid {info['pid']} (driver {os.getpid()}): CUDA_VISIBLE_DEVICES="
+              f"{info['cuda_visible_devices']!r}, cuda available {info['cuda_available']}, policy on "
+              f"{info['policy_device']}, {info['torch_threads']} torch threads, jax/ray_tpu modules {forbidden}",
+              flush=True)
+        check(f"{what} rollout worker is another process", info["pid"] != os.getpid(), f"{info['pid']}")
+        check(f"{what} rollout worker has no CUDA device",
+              info["cuda_visible_devices"] == "" and not info["cuda_available"] and info["policy_device"] == "cpu",
+              f"CUDA_VISIBLE_DEVICES={info['cuda_visible_devices']!r}, policy on {info['policy_device']}")
+        check(f"{what} rollout worker loads no jax or ray_tpu module", not forbidden, f"{forbidden}")
+        check(f"{what} rollout worker runs its granted threads", info["torch_threads"] == worker_cpus,
+              f"{info['torch_threads']} vs {worker_cpus}")
+
+
+def iteration_profile(algo, device):
+    """torch.profiler over one PPO iteration in the driver (the learner's
+    process): the device's busy time and idle share of that iteration's
+    wall (the profiler's own host cost included)."""
+    from ray_tpu_torch.tools.profile_train_step import busy_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        result = algo.train()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    check("rllib (j2) profile holds device kernels", bool(kernels), f"{len(kernels)} kernels")
+    return {"traced_ms": traced_ms, "device_busy_ms": busy, "kernels": len(kernels),
+            "idle_share": 1 - busy / traced_ms, "result": result}
+
+
+def learner_only(policy, rows, minibatch):
+    """bench_rllib.py's learner-only rate: load_batch + learn_on_loaded_batch
+    on one fixed batch of uniform frames, RL_LEARNER_CALLS times after one
+    warm-up; env-steps/s and ms a call."""
+    batch = pixel_batch(rows, seed=2, frames="noise")
+    policy.learn_on_loaded_batch(policy.load_batch(batch), RL_SGD_ITERS, minibatch)  # ends in a sync
+    t0 = time.perf_counter()
+    for _ in range(RL_LEARNER_CALLS):
+        metrics = policy.learn_on_loaded_batch(policy.load_batch(batch), RL_SGD_ITERS, minibatch)
+    dt = time.perf_counter() - t0
+    check("rllib (j2) learner-only losses finite", all(math.isfinite(v) for v in metrics.values()), f"{metrics}")
+    return {"env_steps_per_s": RL_LEARNER_CALLS * rows / dt, "ms_per_call": dt / RL_LEARNER_CALLS * 1e3}
+
+
+def rllib_ppo_run(card, device, env, model, workers, envs, fragment, minibatch, iters, worker_cpus):
+    """(j2) inside a live cluster: PPO's build, one warm-up and `iters`
+    timed iterations, a profiled one, the learner-only rate."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import AlgorithmConfig
+
+    algo = (
+        AlgorithmConfig(learner_device=device, num_cpus_per_worker=worker_cpus)
+        .environment(env)
+        .rollouts(num_rollout_workers=workers, num_envs_per_worker=envs)
+        .training(lr=RL_LR, train_batch_size=workers * envs * fragment, rollout_fragment_length=fragment,
+                  sgd_minibatch_size=minibatch, num_sgd_iter=RL_SGD_ITERS, model=model)
+        .build()
+    )
+    try:
+        infos = ray_tpu_torch.get([w.worker_info.remote() for w in algo.workers], timeout=RL_TIMEOUT_S)
+        rllib_worker_checks("rllib (j2)", infos, worker_cpus)
+        warm = algo.train()
+        t0 = time.perf_counter()
+        runs = [algo.train() for _ in range(iters)]
+        wall = time.perf_counter() - t0
+        profile = iteration_profile(algo, device)
+        learner = learner_only(algo.policy, workers * envs * fragment, minibatch)
+        on_card = {p.device.type for p in algo.policy.model.parameters()}
+    finally:
+        algo.stop()
+    steps = sum(r["timesteps_this_iter"] for r in runs)
+    mean = {k: sum(r[k] for r in runs) / len(runs) for k in ("time_this_iter_s", "rollout_s", "transfer_s", "h2d_s", "learn_s")}
+    losses = [r["total_loss"] for r in (warm, *runs, profile["result"])]
+    print(f"rllib (j2) PPO nature CNN, {workers} workers x {envs} envs x {fragment} steps ({steps // iters} rows an "
+          f"iteration), minibatch {minibatch}, {RL_SGD_ITERS} epochs, learner on {device} ({card}; cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}), {worker_cpus} torch threads a worker: {steps / wall:.1f} env-steps/s "
+          f"over {iters} iterations; an iteration {mean['time_this_iter_s']:.3f} s: rollout {mean['rollout_s']:.3f} "
+          f"(slowest worker), transfer {mean['transfer_s']:.3f}, host-to-device {mean['h2d_s']:.4f}, learn "
+          f"{mean['learn_s']:.4f}; learner only {learner['env_steps_per_s']:.1f} env-steps/s "
+          f"({learner['ms_per_call']:.2f} ms a {steps // iters}-row call); one profiled iteration "
+          f"{profile['traced_ms']:.1f} ms, device busy {profile['device_busy_ms']:.2f} ms ({profile['kernels']} "
+          f"kernels), idle {profile['idle_share']:.4f}; episode reward mean {runs[-1]['episode_reward_mean']:.3f}",
+          flush=True)
+    check("rllib (j2) learner's parameters on the card", on_card == {device}, f"{on_card}")
+    check("rllib (j2) losses finite", all(math.isfinite(x) for x in losses), f"{losses}")
+    return {"env_steps_per_s": steps / wall, "learner_only": learner, "profile": profile, "mean_s": mean}
+
+
+def rllib_async_run(device, env_factory, model, workers, envs, fragment, worker_cpus):
+    """(j3) inside a live cluster: IMPALA, then APPO, a few iterations each
+    with the learner thread on `device`."""
+    from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig
+
+    out = {}
+    for name, config_cls in (("IMPALA", IMPALAConfig), ("APPO", APPOConfig)):
+        algo = (
+            config_cls(learner_device=device, num_cpus_per_worker=worker_cpus, num_batches_per_iter=RL_ASYNC_BATCHES,
+                       rollout_fragment_length=fragment, lr=RL_LR, model=model)
+            .environment(env_factory(envs))
+            .rollouts(num_rollout_workers=workers, num_envs_per_worker=envs)
+            .build()
+        )
+        try:
+            t0 = time.perf_counter()
+            runs = [algo.train() for _ in range(RL_ASYNC_ITERS)]
+            wall = time.perf_counter() - t0
+            error = algo._learner.error
+        finally:
+            algo.stop()
+        last = runs[-1]
+        updates, by_device = last["num_learner_updates"], last["learner_device_updates"]
+        steps = sum(r["timesteps_this_iter"] for r in runs)
+        print(f"rllib (j3) {name}: {RL_ASYNC_ITERS} iterations, {updates} learner updates {by_device}, "
+              f"{steps / wall:.1f} env-steps/s, last losses {[round(r['total_loss'], 4) for r in runs]}", flush=True)
+        check(f"rllib (j3) {name} learner updates ran on the card", by_device == {device: updates}, f"{by_device}")
+        check(f"rllib (j3) {name} learner update count reached", updates >= RL_ASYNC_ITERS * RL_ASYNC_BATCHES,
+              f"{updates} of {RL_ASYNC_ITERS * RL_ASYNC_BATCHES}")
+        check(f"rllib (j3) {name} losses finite", all(math.isfinite(r["total_loss"]) for r in runs),
+              f"{[r['total_loss'] for r in runs]}")
+        check(f"rllib (j3) {name} no learner error", error is None, f"{error!r}")
+        out[name] = {"updates": updates, "env_steps_per_s": steps / wall}
+    return out
+
+
+def rllib_phase(card, device="cuda", model=None, workers=RL_WORKERS, envs=RL_ENVS, fragment=RL_FRAGMENT,
+                minibatch=RL_MINIBATCH, iters=RL_TIMED_ITERS, async_envs=RL_ASYNC_ENVS, worker_cpus=RL_WORKER_CPUS,
+                cluster_cpus=8):
+    """(j2) and (j3) on one cluster: ray_tpu_torch.init, PPO at
+    bench_rllib.py's configuration, then IMPALA and APPO; no process left
+    after shutdown().  torch's default TF32 setting for cuDNN (on) holds
+    while they run."""
+    import functools
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.rllib import SyntheticPixelEnv
+
+    model = {"type": "cnn", **(model or {})}
+
+    def env_factory(n):  # a partial of the port's class: workers import it, nothing of this script
+        return functools.partial(SyntheticPixelEnv, num_envs=n, shaped=True, seed=11)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    before = session_processes(os.getpid())
+    ray_tpu_torch.init(num_cpus=cluster_cpus)
+    try:
+        ppo = rllib_ppo_run(card, device, env_factory(envs), model, workers, envs, fragment, minibatch, iters,
+                            worker_cpus)
+        asyncs = rllib_async_run(device, env_factory, model, workers, async_envs, fragment, worker_cpus)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        cluster = session_processes(global_worker.head_proc.pid)
+        ray_tpu_torch.shutdown()
+    await_no_leftover("rllib (j)", cluster, before)
+    return {"ppo": ppo, "async": asyncs}
+
+
 def build_phase(att):
     """Build every kernel source at once; print registers and spills per
     kernel (ptxas), failing if an sm90 kernel (the f32 ones included)
@@ -1834,6 +2138,13 @@ def main() -> int:
     with timed("9 (i) engine"):
         engine_check_phase(smi)
         engine_serve_phase(kind, smi, static)
+
+    # 10. (j) RLlib's on-policy family: (j1) the PPO learner on the card
+    # against the CPU; (j2) PPO at bench_rllib.py's configuration, rollout
+    # workers as CPU actors; (j3) IMPALA and APPO.  No kernel of its own.
+    with timed("10 (j) rllib"):
+        rllib_learner_phase(smi)
+        rllib_phase(smi)
 
     return finish(kernel_report(launches, max_err, times, plain, library, bounds, long, f32), kind)
 

@@ -13,8 +13,10 @@ raylet, core worker, zygote, object store, collectives) and the trainer
 package's layout and public API: `init`, `remote`, `get`, `put`, actors,
 placement groups.  `serve` (deployments, handles, the controller, the HTTP
 proxy and `serve.llm`'s Llama deployment) keeps the JAX package's layout
-too.  Head, raylet and zygote never import torch; a worker imports it when
-its task does.
+too, and `rllib` holds RLlib's on-policy family (PPO with its learner on
+the card, rollout workers as CPU actors; IMPALA, APPO, DDPPO).  Head,
+raylet and zygote never import torch; a worker imports it when its task
+does.
 """
 
 __version__ = "0.1.0"

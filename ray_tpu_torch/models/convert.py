@@ -106,3 +106,41 @@ def llama_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     state = {name: _tensor(params[name]) for name in ("tok_emb", "out_head", "final_norm")}
     state.update({f"layers.{leaf}": _tensor(value) for leaf, value in params["layers"].items()})
     return state
+
+
+def rllib_params_from_jax(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX RLlib policy's parameter tree (`JaxPolicy.params` or
+    `get_weights()`, numpy leaves; `ray_tpu/rllib/models.py`) as `model`'s
+    state dict of float32 CPU tensors, for `model.load_state_dict`.
+
+    A layer `{"w", "b"}` at tree path `a/0` becomes `a.0.weight` and
+    `a.0.bias`: dense `w` [in, out] is transposed to `nn.Linear`'s
+    [out, in], conv `w` HWIO to OIHW.  The CNN trunk's input rows are
+    permuted once from the reference's NHWC flatten order (h, w, c) to the
+    port's NCHW order (c, h, w), so the port's forward stays NCHW.  The map
+    is linear, so a gradient tree converts the same way."""
+    from ray_tpu_torch.rllib.models import CNNModel
+
+    state: Dict[str, torch.Tensor] = {}
+
+    def weight(w: np.ndarray, name: str) -> np.ndarray:
+        if w.ndim == 4:  # HWIO -> OIHW
+            return w.transpose(3, 2, 0, 1)
+        if name == "trunk" and isinstance(model, CNNModel):
+            h, wd, c = model.out_hwc
+            w = w.reshape(h, wd, c, -1).transpose(2, 0, 1, 3).reshape(h * wd * c, -1)
+        return w.T
+
+    def walk(node, name: str) -> None:
+        if isinstance(node, (list, tuple)):
+            for i, sub in enumerate(node):
+                walk(sub, f"{name}.{i}")
+        elif "w" in node:
+            state[f"{name}.weight"] = torch.from_numpy(np.array(weight(np.asarray(node["w"], np.float32), name)))
+            state[f"{name}.bias"] = torch.from_numpy(np.array(node["b"], np.float32))
+        else:
+            for key, sub in node.items():
+                walk(sub, f"{name}.{key}" if name else key)
+
+    walk(params, "")
+    return state

@@ -215,3 +215,27 @@ def test_engine_phase_rehearsal(monkeypatch, capsys):
     assert report["stats"]["compile_prefill"] == 1 and report["stats"]["pages_used"] == 0
     assert report["ttft"]["count"] >= 1 and report["engine"]["kv_pages:total"] > 0
     capsys.readouterr()
+
+
+def test_rllib_phase_rehearsal(monkeypatch, capsys):
+    """Phase (j) on the CPU at a tiny size (small filters, 2 workers x 2
+    envs, the learner on the CPU): (j1) the learner against itself on the
+    CPU, (j2) PPO through a cluster (the rollout workers' process checks,
+    the timings, the learner-only rate, the profile), (j3) IMPALA and APPO,
+    then the process scan after shutdown.  On the CPU the profile holds no
+    device kernel, so exactly that check fails."""
+    cs = _chip_smoke(monkeypatch)
+    small = {"conv_filters": ((16, 8, 4), (32, 4, 2))}
+    j1 = cs.rllib_learner_phase("cpu", device="cpu", model=small, rows=cs.RL_CHECK_MINIBATCH)
+    assert j1["grad_err"] == j1["param_err"] == j1["prob_err"] == 0.0
+    assert cs.FAILED == []
+    report = cs.rllib_phase("cpu", device="cpu", model=small, workers=2, envs=2, fragment=8, minibatch=16, iters=1,
+                            async_envs=2, worker_cpus=1, cluster_cpus=4)
+    ppo = report["ppo"]
+    assert ppo["env_steps_per_s"] > 0 and ppo["learner_only"]["env_steps_per_s"] > 0
+    assert {"rollout_s", "transfer_s", "h2d_s", "learn_s"} <= set(ppo["mean_s"])
+    assert 0 < ppo["profile"]["traced_ms"]
+    assert report["async"]["IMPALA"]["updates"] >= cs.RL_ASYNC_ITERS * cs.RL_ASYNC_BATCHES
+    assert cs.FAILED == ["rllib (j2) profile holds device kernels"], cs.FAILED
+    out = capsys.readouterr().out
+    assert "rllib (j2) rollout worker pid" in out and "rllib (j3) APPO" in out

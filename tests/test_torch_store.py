@@ -231,3 +231,66 @@ def test_runtime_frees_blocks_a_killed_worker_pinned(delete_first):
                   f"the store returns to used={used}, objects={objects}")
     finally:
         ray_tpu_torch.shutdown()
+
+
+def _killed_borrower_keeps_object(pkg):
+    """An actor borrows a ref nested in a list (the call's argument, not
+    resolved) and drops it as its call returns; it is SIGKILLed right
+    after, before its batched ref release goes out.  Returns (the object
+    is readable while the driver still holds the ref, the object is freed
+    within 5 s of the driver dropping its ref)."""
+    from importlib import import_module
+
+    worker_mod = import_module(pkg.__name__ + "._private.worker")
+    pkg.init(num_cpus=2)
+    try:
+        @pkg.remote
+        class Borrower:
+            def ping(self):
+                return os.getpid()
+
+            def take(self, refs):
+                return len(refs)
+
+        borrower = Borrower.remote()
+        pid = pkg.get(borrower.ping.remote(), timeout=TIMEOUT)
+        store = worker_mod.global_worker.core_worker.store
+        ref = pkg.put(np.full(1 << 18, 7.0))
+        oid = ref.binary()
+        assert pkg.get(borrower.take.remote([ref]), timeout=TIMEOUT) == 1
+        os.kill(pid, signal.SIGKILL)
+        time.sleep(1.0)
+        held = store.contains(oid) and bool(np.all(np.asarray(pkg.get(ref, timeout=TIMEOUT)) == 7.0))
+        del ref
+        deadline = time.monotonic() + 5
+        while store.contains(oid) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return held, not store.contains(oid)
+    finally:
+        pkg.shutdown()
+
+
+@pytest.mark.parametrize("package", [
+    pytest.param("ray_tpu", marks=pytest.mark.xfail(
+        strict=True, reason="the reference keeps an object a SIGKILLed borrower never released (ROADMAP Queue 3)")),
+    pytest.param("ray_tpu_torch", marks=pytest.mark.xfail(
+        strict=True, reason="the port keeps it as the reference does (ROADMAP Queue 3)")),
+])
+def test_killed_borrower_releases_its_borrow(package, monkeypatch):
+    """The object stays readable while the driver holds its ref, and is
+    freed once the driver drops it, though the borrower was SIGKILLed
+    before its release went out.  Both packages keep the object (the
+    head never learns that the dead borrower's borrow ended)."""
+    import importlib
+
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    pkg = importlib.import_module(package)
+    try:
+        held, freed = _killed_borrower_keeps_object(pkg)
+    finally:
+        if package == "ray_tpu":
+            from ray_tpu._private.config import RayConfig
+
+            RayConfig.reset()
+    assert held, "the object was freed while the driver held its ref"
+    assert freed, "the object outlived the driver's ref: the dead borrower's borrow never ended"
