@@ -168,6 +168,30 @@ Phases:
      learner updates: every update on the card, the count reached, losses
      finite, no learner error; no process left after shutdown().  Every
      cluster call carries a timeout (RL_TIMEOUT_S).
+ 11. (k) RLlib's off-policy family (no kernel of its own: MLPs on cuBLAS,
+     the nature CNN on cuDNN).  (k1) one update of each learner on the
+     card against the same update on the CPU, float32 with TF32 off, the
+     same converted weights (JAX-layout trees from seeds through
+     rllib_params_from_jax) and the same injected noise: SAC at
+     bench_rllib.py _bench_sac's shape (obs 3, action 1, hidden 128 x 128,
+     batch 128), TD3 at its defaults (256 x 256, batch 256; step 0, where
+     the actor and both targets move), DQN with the nature CNN on 84x84x4
+     uint8 env frames, batch 64, PER weights.  Metrics within 1e-4
+     relative; parameters within 1e-5 (DQN's, if an element sits in an
+     Adam tie as in (j1), held by its Q-values on the batch within 1e-4 of
+     the largest); the parameters on the card.  (k2) _bench_sac's loop
+     (bench_rllib.py:196-237) with the learner on the card: PendulumEnv
+     with 16 envs, 80 random warm-up steps, 500 iterations of acting plus
+     4 updates of 128 rows (env-steps/s, grad updates/s, ms an update in
+     the loop and alone, the last 10 episodes' mean reward, alpha), 20 more
+     under torch.profiler (the device's idle share, kernels an iteration).
+     Checked: losses finite, alpha > 0.  (k3) ray_tpu_torch.init, then
+     SAC, TD3, DDPG (Pendulum, 8 envs a worker) and DQN (the pixel env,
+     nature CNN) with 2 CPU rollout workers, 3 iterations of 16 updates
+     each from the first iteration on: the update count reached, the
+     learner on the card, losses finite, the workers other processes with
+     no card, their granted threads and no jax or ray_tpu module; no
+     process left after shutdown().  Every cluster call carries a timeout.
 Each phase prints its wall seconds.  Then one JSON line on the kernels (the
 D=64 kernels' launches from (b), error and times from phase 3; the
 sm90_d128 kernels' launches from (f), error and times at the prefill shape
@@ -2006,6 +2030,294 @@ def rllib_phase(card, device="cuda", model=None, workers=RL_WORKERS, envs=RL_ENV
     return {"ppo": ppo, "async": asyncs}
 
 
+OFF_SAC = ((3,), 1, (128, 128), 128)  # (k1), (k2): bench_rllib.py _bench_sac's obs, action, hidden, batch
+OFF_TD3 = ((3,), 1, (256, 256), 256)  # (k1): TD3Policy's and TD3Config's defaults on the same spaces
+OFF_DQN_BATCH = 64  # (k1): DQNConfig's train_batch_size, the nature CNN at RL_OBS uint8
+OFF_PARAM_TOL, OFF_METRIC_TOL = 1e-5, 1e-4  # (k1)
+SAC_ENVS, SAC_WARMUP, SAC_ITERS, SAC_UPDATES = 16, 80, 500, 4  # (k2): _bench_sac's loop (bench_rllib.py:196-237)
+SAC_PROFILE_ITERS = 20  # (k2): iterations under torch.profiler
+SAC_ALONE_UPDATES = 200  # (k2): learn_on_batch alone, after the loop
+OFF_WORKERS, OFF_ENVS, OFF_FRAGMENT, OFF_ITERS, OFF_UPDATES = 2, 8, 64, 3, 16  # (k3): per iteration
+OFF_TIMEOUT_S = 300  # every cluster call of (k)
+
+
+def jax_layout_dense(module, seed):
+    """A parameter tree in the JAX package's layout for `module`'s linear
+    layers ([in, out] `w` at the reference's He scale, zero `b`; a bare
+    layer list where the names are indices, as `mlp_init` makes), drawn
+    from `seed`: what the JAX policy's params look like, made without JAX."""
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for name, p in module.named_parameters():
+        if name.endswith(".weight"):
+            *path, leaf = name[: -len(".weight")].split(".")
+            node = tree
+            for key in path:
+                node = node.setdefault(key, {})
+            out_f, in_f = p.shape
+            node[leaf] = {"w": rng.standard_normal((in_f, out_f), np.float32) * np.float32((2.0 / in_f) ** 0.5),
+                          "b": np.zeros(out_f, np.float32)}
+
+    def lists(node):
+        if "w" in node:
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        return [node[str(i)] for i in range(len(node))] if all(k.isdigit() for k in node) else node
+
+    return lists(tree)
+
+
+def transitions(rows, obs_dim, act_dim, seed):
+    """A replay minibatch of continuous-control transitions from `seed`."""
+    from ray_tpu_torch.rllib.sample_batch import ACTIONS, DONES, NEXT_OBS, OBS, REWARDS, SampleBatch
+
+    rng = np.random.default_rng(seed)
+    return SampleBatch({
+        OBS: rng.standard_normal((rows, obs_dim)).astype(np.float32),
+        ACTIONS: rng.uniform(-1, 1, (rows, act_dim)).astype(np.float32),
+        REWARDS: rng.standard_normal(rows).astype(np.float32),
+        NEXT_OBS: rng.standard_normal((rows, obs_dim)).astype(np.float32),
+        DONES: (rng.random(rows) < 0.1).astype(np.float32),
+    })
+
+
+def learner_gap(what, pols, metrics, names, device):
+    """Metrics' largest relative gap and, per part, (max |diff|, elements
+    above OFF_PARAM_TOL, elements) between the CPU learner pols[0] and the
+    card's pols[1]; checks the metrics and that the parameters are on the
+    card."""
+    host, learner = pols
+    m_err = max(abs(metrics[1][k] - metrics[0][k]) / max(abs(metrics[0][k]), 1e-12) for k in metrics[0])
+    gaps, on_card = {}, set()
+    for name in names:
+        a, b = getattr(host, name), getattr(learner, name)
+        pa, pb = ([a], [b]) if isinstance(a, torch.Tensor) else (list(a.parameters()), list(b.parameters()))
+        diff = torch.cat([(y.detach().cpu().double() - x.detach().double()).reshape(-1) for x, y in zip(pa, pb)])
+        gaps[name] = (float(diff.abs().max()), int((diff.abs() > OFF_PARAM_TOL).sum()), diff.numel())
+        on_card |= {p.device.type for p in pb}
+    print(f"offpolicy (k1) {what} one update on {device} vs the CPU (TF32 off, same converted weights and noise): "
+          f"metrics {m_err:.3e} relative apart; parameters (max |diff|, above {OFF_PARAM_TOL}, of) {gaps}; "
+          f"metrics {metrics[1]} vs {metrics[0]}", flush=True)
+    check(f"offpolicy (k1) {what} metrics within {OFF_METRIC_TOL} relative", m_err <= OFF_METRIC_TOL, f"{m_err:.3e}")
+    check(f"offpolicy (k1) {what} learner's parameters on the card", on_card == {device}, f"{on_card}")
+    return {"metric_err": m_err, "param_err": max(g[0] for g in gaps.values())}
+
+
+def offpolicy_learner_phase(card, device="cuda", sac=OFF_SAC, td3=OFF_TD3, dqn_batch=OFF_DQN_BATCH, dqn_model=None):
+    """(k1): one update of SAC, TD3 and DQN on the card against the same
+    update on the CPU, float32 with TF32 off: the same converted weights
+    (JAX-layout trees from seeds through rllib_params_from_jax), the same
+    batch and the same injected noise.  Metrics within 1e-4 relative;
+    SAC's and TD3's parameters within 1e-5.  DQN's nature CNN too, unless
+    an element's gradient sits in a rounding tie near Adam's eps (a first
+    step moves it by up to 2 lr on either side, see (j1)): then its
+    Q-values on the batch must agree within 1e-4 of their largest."""
+    from ray_tpu_torch.models.convert import rllib_params_from_jax
+    from ray_tpu_torch.rllib import DQNPolicy, SACPolicy, SyntheticPixelEnv, TD3Policy
+    from ray_tpu_torch.rllib.sac import floats, transition_tensors
+
+    def load(pols, name, seed, targets=()):
+        tree = jax_layout_dense(getattr(pols[0], name), seed)
+        for pol in pols:
+            state = rllib_params_from_jax(tree, getattr(pol, name))
+            for module in (name, *targets):
+                getattr(pol, module).load_state_dict(state)
+
+    def noise(rng, shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    out = {}
+    obs_shape, act, hidden, rows = sac
+    pols = [SACPolicy(obs_shape, act, hidden=hidden, device=d) for d in ("cpu", device)]
+    load(pols, "actor", 1)
+    load(pols, "critic", 2, targets=("q_target",))
+    batch, eps = transitions(rows, obs_shape[0], act, seed=3), noise(np.random.default_rng(4), (2, rows, act))
+    metrics = [floats(p._update(*transition_tensors(batch, p.device), *eps.to(p.device))) for p in pols]
+    out["SAC"] = learner_gap("SAC", pols, metrics, ("actor", "critic", "q_target", "log_alpha"), device)
+
+    obs_shape, act, hidden, rows = td3
+    pols = [TD3Policy(obs_shape, act, hidden=hidden, device=d) for d in ("cpu", device)]
+    load(pols, "actor", 5, targets=("actor_target",))
+    load(pols, "critic", 6, targets=("q_target",))
+    batch, eps = transitions(rows, obs_shape[0], act, seed=7), noise(np.random.default_rng(8), (rows, act))
+    metrics = [floats(p._update(*transition_tensors(batch, p.device), eps.to(p.device))) for p in pols]
+    out["TD3"] = learner_gap("TD3 (step 0: actor and targets move)", pols, metrics,
+                             ("actor", "critic", "actor_target", "q_target"), device)
+    for what, gap in (("SAC", out["SAC"]), ("TD3", out["TD3"])):
+        check(f"offpolicy (k1) {what} parameters within {OFF_PARAM_TOL}", gap["param_err"] <= OFF_PARAM_TOL,
+              f"{gap['param_err']:.3e}")
+
+    cfg = dict(obs_shape=RL_OBS, num_actions=RL_ACTIONS, model_config={"type": "cnn", **(dqn_model or {})})
+    pols = [DQNPolicy(device=d, **cfg) for d in ("cpu", device)]
+    tree = jax_layout_cnn(pols[0].model, seed=9)
+    for pol in pols:
+        state = rllib_params_from_jax(tree, pol.model)
+        pol.model.load_state_dict(state)
+        pol.target_model.load_state_dict(state)
+    rng = np.random.default_rng(10)
+    env = SyntheticPixelEnv(num_envs=dqn_batch, seed=10)
+    obs = env.reset(seed=10)
+    actions = rng.integers(0, RL_ACTIONS, dqn_batch)
+    next_obs, rewards, dones, _ = env.step(actions)
+    weights = rng.uniform(0.2, 1.0, dqn_batch).astype(np.float32)  # PER weights
+    cols = [(torch.from_numpy(obs), torch.from_numpy(actions), torch.from_numpy(rewards),
+             torch.from_numpy(next_obs), torch.from_numpy(dones.astype(np.float32)), torch.from_numpy(weights))]
+    results = [p._update(*(c.to(p.device) for c in cols[0])) for p in pols]
+    metrics = [{"loss": float(loss), "td_abs_mean": float(td.mean())} for loss, td in results]
+    td_err = float((results[1][1].cpu() - results[0][1]).abs().max())
+    gap = learner_gap("DQN nature CNN (PER weights)", pols, metrics, ("model", "target_model"), device)
+    with torch.no_grad():
+        q_cpu = pols[0].model(torch.from_numpy(obs))[0].double()
+        q_dev = pols[1].model(torch.from_numpy(obs).to(device))[0].cpu().double()
+    q_err = float((q_dev - q_cpu).abs().max() / q_cpu.abs().max())
+    print(f"offpolicy (k1) DQN |td| {td_err:.3e} apart; Q-values after the update {q_err:.3e} of the largest apart",
+          flush=True)
+    if gap["param_err"] > OFF_PARAM_TOL:
+        print(f"offpolicy (k1) DQN: parameters {gap['param_err']:.3e} apart (an Adam tie, see (j1)): the Q-values "
+              f"on the batch hold it", flush=True)
+        check("offpolicy (k1) DQN Q-values within 1e-4 of the largest", q_err <= 1e-4, f"{q_err:.3e}")
+    out["DQN"] = {**gap, "q_err": q_err}
+    return out
+
+
+def sac_bench_phase(card, device="cuda", iters=SAC_ITERS, profile_iters=SAC_PROFILE_ITERS, alone=SAC_ALONE_UPDATES,
+                    sac=OFF_SAC):
+    """(k2): bench_rllib.py's _bench_sac loop with the learner on the card:
+    PendulumEnv with 16 envs, 80 random warm-up steps into the replay
+    buffer, one warm update, then `iters` iterations of acting plus 4
+    updates of 128 rows.  Then `profile_iters` more under torch.profiler
+    (the device's idle share), and `alone` updates alone."""
+    from ray_tpu_torch.rllib import PendulumEnv, ReplayBuffer, SACPolicy
+    from ray_tpu_torch.rllib.sample_batch import ACTIONS, DONES, NEXT_OBS, OBS, REWARDS, SampleBatch
+    from ray_tpu_torch.tools.profile_train_step import busy_us
+
+    obs_shape, act, hidden, rows = sac
+    env = PendulumEnv(num_envs=SAC_ENVS, seed=0)
+    pol = SACPolicy(obs_shape, act, action_low=env.action_space.low, action_high=env.action_space.high,
+                    hidden=hidden, seed=0, device=device)
+    buf = ReplayBuffer(100_000, seed=0)
+    state = {"obs": env.reset(seed=0), "ep": np.zeros(SAC_ENVS), "hist": []}
+
+    def store(raw, env_actions):
+        nobs, rew, done, _ = env.step(env_actions)
+        buf.add(SampleBatch({OBS: state["obs"], ACTIONS: raw, REWARDS: rew, NEXT_OBS: nobs,
+                             DONES: done.astype(np.float32)}))
+        state["ep"] += rew
+        for i in np.nonzero(done)[0]:
+            state["hist"].append(state["ep"][i])
+            state["ep"][i] = 0.0
+        state["obs"] = nobs
+
+    rng = np.random.default_rng(0)
+    for _ in range(SAC_WARMUP):
+        raw = rng.uniform(-1, 1, (SAC_ENVS, act)).astype(np.float32)
+        store(raw, pol._center + pol._scale * raw)
+    metrics = pol.learn_on_batch(buf.sample(rows))  # builds the optimizers; ends in a copy to the host
+
+    def iteration():
+        env_a, raw = pol.compute_actions(state["obs"])
+        store(raw, env_a)
+        return [pol.learn_on_batch(buf.sample(rows)) for _ in range(SAC_UPDATES)][-1]
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        metrics = iteration()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profile_iters):
+            metrics = iteration()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    print("offpolicy (k2) host time by operator over the profiled iterations (self ms, calls): "
+          + "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count})" for e in host), flush=True)
+    batch = buf.sample(rows)
+    t2 = time.perf_counter()
+    for _ in range(alone):
+        pol.learn_on_batch(batch)
+    alone_ms = (time.perf_counter() - t2) / alone * 1e3
+    reward = float(np.mean(state["hist"][-10:])) if state["hist"] else 0.0
+    out = {"env_steps_per_s": iters * SAC_ENVS / wall, "updates_per_s": iters * SAC_UPDATES / wall,
+           "ms_per_update": wall / (iters * SAC_UPDATES) * 1e3, "ms_per_update_alone": alone_ms,
+           "episode_reward_mean": reward, "alpha": metrics["alpha"], "idle_share": 1 - busy_ms / traced_ms,
+           "kernels_per_iteration": len(kernels) / profile_iters}
+    print(f"offpolicy (k2) SAC on Pendulum, bench_rllib.py's loop ({SAC_ENVS} envs, {iters} iterations of acting + "
+          f"{SAC_UPDATES} updates of {rows} rows, hidden {hidden}), learner on {device} ({card}): "
+          f"{out['env_steps_per_s']:.1f} env-steps/s, {out['updates_per_s']:.1f} grad updates/s, "
+          f"{out['ms_per_update']:.3f} ms an update in the loop (acting included), {alone_ms:.3f} ms an update "
+          f"alone; episode reward mean (last 10) {reward:.1f}, alpha {metrics['alpha']:.4f}; {profile_iters} "
+          f"profiled iterations {traced_ms:.1f} ms, device busy {busy_ms:.2f} ms ({len(kernels)} kernels, "
+          f"{out['kernels_per_iteration']:.1f} an iteration), idle {out['idle_share']:.4f}", flush=True)
+    losses = [metrics[k] for k in ("critic_loss", "actor_loss", "alpha_loss")]
+    check("offpolicy (k2) SAC losses finite", all(math.isfinite(x) for x in losses), f"{metrics}")
+    check("offpolicy (k2) SAC alpha > 0", metrics["alpha"] > 0, f"{metrics['alpha']}")
+    check("offpolicy (k2) profile holds device kernels", bool(kernels), f"{len(kernels)} kernels")
+    return out
+
+
+def offpolicy_cluster_phase(card, device="cuda", workers=OFF_WORKERS, envs=OFF_ENVS, fragment=OFF_FRAGMENT,
+                            iters=OFF_ITERS, updates=OFF_UPDATES, hidden=None, dqn_model=None,
+                            worker_cpus=RL_WORKER_CPUS, cluster_cpus=8):
+    """(k3): ray_tpu_torch.init, then SAC, TD3, DDPG (Pendulum) and DQN (the
+    pixel env, nature CNN) with `workers` CPU rollout workers, `iters`
+    iterations each, updates from the first iteration on; no process left
+    after shutdown()."""
+    import functools
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.rllib import DDPGConfig, DQNConfig, PendulumEnv, SACConfig, SyntheticPixelEnv, TD3Config
+
+    rows = workers * envs * (fragment // envs)  # an iteration's transitions
+    common = dict(learner_device=device, num_cpus_per_worker=worker_cpus, rollout_fragment_length=fragment,
+                  learning_starts=rows, num_train_per_iter=updates)
+    pendulum = functools.partial(PendulumEnv, num_envs=envs, seed=0)  # the port's class: workers import it
+    continuous = {} if hidden is None else {"hidden": hidden}
+    runs = {
+        "SAC": SACConfig(**common, **continuous).environment(pendulum),
+        "TD3": TD3Config(**common, **continuous).environment(pendulum),
+        "DDPG": DDPGConfig(**common, **continuous).environment(pendulum),
+        "DQN": DQNConfig(**common, buffer_size=4 * rows, model={"type": "cnn", **(dqn_model or {})})
+        .environment(functools.partial(SyntheticPixelEnv, num_envs=envs, shaped=True, seed=11)),
+    }
+    out = {}
+    before = session_processes(os.getpid())
+    ray_tpu_torch.init(num_cpus=cluster_cpus)
+    try:
+        for name, config in runs.items():
+            algo = config.rollouts(num_rollout_workers=workers, num_envs_per_worker=envs).build()
+            try:
+                infos = ray_tpu_torch.get([w.worker_info.remote() for w in algo.workers], timeout=OFF_TIMEOUT_S)
+                rllib_worker_checks(f"offpolicy (k3) {name}", infos, worker_cpus)
+                t0 = time.perf_counter()
+                results = [algo.train() for _ in range(iters)]
+                wall = time.perf_counter() - t0
+                modules = (algo.policy.model,) if name == "DQN" else (algo.policy.actor, algo.policy.critic)
+                on_card = {p.device.type for m in modules for p in m.parameters()}
+            finally:
+                algo.stop()
+            key, loss = ("num_td_updates", "loss") if name == "DQN" else ("num_grad_updates", "critic_loss")
+            done = sum(r[key] for r in results)
+            losses = [r[loss] for r in results]
+            print(f"offpolicy (k3) {name}: {iters} iterations of {rows} transitions, {done} updates on {on_card}, "
+                  f"{results[-1]['timesteps_total'] / wall:.1f} env-steps/s, losses "
+                  f"{[round(x, 4) for x in losses]}", flush=True)
+            check(f"offpolicy (k3) {name} updates counted", done == iters * updates, f"{done} of {iters * updates}")
+            check(f"offpolicy (k3) {name} learner on the card", on_card == {device}, f"{on_card}")
+            check(f"offpolicy (k3) {name} losses finite", all(math.isfinite(x) for x in losses), f"{losses}")
+            out[name] = {"updates": done, "env_steps_per_s": results[-1]["timesteps_total"] / wall}
+    finally:
+        cluster = session_processes(global_worker.head_proc.pid)
+        ray_tpu_torch.shutdown()
+    await_no_leftover("offpolicy (k3)", cluster, before)
+    return out
+
+
 def build_phase(att):
     """Build every kernel source at once; print registers and spills per
     kernel (ptxas), failing if an sm90 kernel (the f32 ones included)
@@ -2145,6 +2457,14 @@ def main() -> int:
     with timed("10 (j) rllib"):
         rllib_learner_phase(smi)
         rllib_phase(smi)
+
+    # 11. (k) RLlib's off-policy family: (k1) SAC, TD3 and DQN updates on the
+    # card against the CPU; (k2) bench_rllib.py's SAC loop on the card; (k3)
+    # SAC, TD3, DDPG and DQN through a cluster.  No kernel of its own.
+    with timed("11 (k) rllib off-policy"):
+        offpolicy_learner_phase(smi)
+        sac_bench_phase(smi)
+        offpolicy_cluster_phase(smi)
 
     return finish(kernel_report(launches, max_err, times, plain, library, bounds, long, f32), kind)
 

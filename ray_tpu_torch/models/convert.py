@@ -114,7 +114,7 @@ def rllib_params_from_jax(params: Mapping, model: torch.nn.Module) -> Dict[str, 
     state dict of float32 CPU tensors, for `model.load_state_dict`.
 
     A layer `{"w", "b"}` at tree path `a/0` becomes `a.0.weight` and
-    `a.0.bias`: dense `w` [in, out] is transposed to `nn.Linear`'s
+    `a.0.bias` (at `0`, the root of a layer list, `0.weight`): dense `w` [in, out] is transposed to `nn.Linear`'s
     [out, in], conv `w` HWIO to OIHW.  The CNN trunk's input rows are
     permuted once from the reference's NHWC flatten order (h, w, c) to the
     port's NCHW order (c, h, w), so the port's forward stays NCHW.  The map
@@ -134,7 +134,7 @@ def rllib_params_from_jax(params: Mapping, model: torch.nn.Module) -> Dict[str, 
     def walk(node, name: str) -> None:
         if isinstance(node, (list, tuple)):
             for i, sub in enumerate(node):
-                walk(sub, f"{name}.{i}")
+                walk(sub, f"{name}.{i}" if name else str(i))
         elif "w" in node:
             state[f"{name}.weight"] = torch.from_numpy(np.array(weight(np.asarray(node["w"], np.float32), name)))
             state[f"{name}.bias"] = torch.from_numpy(np.array(node["b"], np.float32))

@@ -83,12 +83,16 @@ def spaces(config: AlgorithmConfig):
     return tuple(env.observation_space.shape), int(env.action_space.n)
 
 
-def make_workers(config: AlgorithmConfig, policy_config: Dict[str, Any], seeds: List[Dict[str, int]]):
-    """One RolloutWorker actor per entry of `seeds` (its `seed` and
-    optional `env_seed`), each holding `num_cpus_per_worker` CPUs."""
-    from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
+def make_workers(
+    config: AlgorithmConfig, policy_config: Dict[str, Any], seeds: List[Dict[str, int]], worker_body=None
+):
+    """One rollout worker actor (`worker_body`, RolloutWorker by default)
+    per entry of `seeds` (its `seed` and optional `env_seed`), each holding
+    `num_cpus_per_worker` CPUs and running that many torch threads."""
+    if worker_body is None:
+        from ray_tpu_torch.rllib.rollout_worker import RolloutWorker as worker_body
 
-    worker_cls = ray_tpu_torch.remote(RolloutWorker).options(num_cpus=config.num_cpus_per_worker)
+    worker_cls = ray_tpu_torch.remote(worker_body).options(num_cpus=config.num_cpus_per_worker)
     return [
         worker_cls.remote(
             config.env_creator,
@@ -139,9 +143,11 @@ class Algorithm:
         policy = getattr(self, "policy", None)
         state = {
             "iteration": self.iteration,
-            # FULL learner state (parameters and Adam's moments and count):
-            # restoring only the weights would restart the optimizer
+            # FULL learner state (parameters, critics, target nets,
+            # temperature, Adam's moments and count): restoring only the
+            # weights would restart the optimizer against fresh critics
             "policy_state": policy.get_state() if policy is not None else None,
+            "extra": self._save_extra_state(),
         }
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
@@ -161,7 +167,14 @@ class Algorithm:
         policy = getattr(self, "policy", None)
         if state["policy_state"] is not None and policy is not None:
             policy.set_state(state["policy_state"])
+        for k, v in state.get("extra", {}).items():
+            setattr(self, k, v)
         return self
+
+    def _save_extra_state(self) -> Dict[str, Any]:
+        """Progress counters, and what a policy-less algorithm (ES) learns;
+        `restore` sets each back as an attribute."""
+        return {attr: getattr(self, attr) for attr in ("total_steps", "total_episodes") if hasattr(self, attr)}
 
 
 class PPO(Algorithm):

@@ -37,8 +37,39 @@ def _linear(fan_in: int, fan_out: int, gen: torch.Generator, scale: float = 2.0)
     return layer
 
 
-def _mlp(sizes: Sequence[int], gen: torch.Generator) -> nn.ModuleList:
-    return nn.ModuleList(_linear(fi, fo, gen) for fi, fo in zip(sizes[:-1], sizes[1:]))
+def mlp_init(sizes: Sequence[int], generator: torch.Generator) -> nn.ModuleList:
+    """A dense stack as a layer list, named `0`, `1`, ... as the JAX tree's
+    list (shared by the catalog models and the off-policy actors and
+    critics)."""
+    return nn.ModuleList(_linear(fi, fo, generator) for fi, fo in zip(sizes[:-1], sizes[1:]))
+
+
+def relu_mlp(layers: nn.ModuleList, h: torch.Tensor) -> torch.Tensor:
+    """ReLU between the layers and none after the last: the JAX package's
+    `sac._mlp_apply`, which SAC's critics and TD3's actor and critics use
+    (the catalog's towers use tanh)."""
+    for i, layer in enumerate(layers):
+        h = layer(h)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h
+
+
+class TwinQ(nn.Module):
+    """Two Q critics over concat(obs, action), as the JAX tree
+    `{"q1": [...], "q2": [...]}`.  With `twin=False` (DDPG) q2 is kept
+    but unused and forward returns (q1, q1), as the reference does."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int], generator: torch.Generator, twin: bool = True):
+        super().__init__()
+        self.twin = twin
+        self.q1 = mlp_init((in_dim, *hidden, 1), generator)
+        self.q2 = mlp_init((in_dim, *hidden, 1), generator)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor):
+        x = torch.cat([obs, act], dim=-1)
+        q1 = relu_mlp(self.q1, x)[..., 0]
+        return (q1, relu_mlp(self.q2, x)[..., 0]) if self.twin else (q1, q1)
 
 
 def _tanh_stack(layers: nn.ModuleList, h: torch.Tensor, last_act: bool) -> torch.Tensor:
@@ -60,8 +91,8 @@ class MLPModel(nn.Module):
         self.obs_dim = int(np.prod(obs_shape))
         self.num_actions = num_actions
         self.hidden = tuple(hidden)
-        self.pi = _mlp((self.obs_dim, *self.hidden, num_actions), gen)
-        self.vf = _mlp((self.obs_dim, *self.hidden, 1), gen)
+        self.pi = mlp_init((self.obs_dim, *self.hidden, num_actions), gen)
+        self.vf = mlp_init((self.obs_dim, *self.hidden, 1), gen)
 
     def forward(self, obs: torch.Tensor):
         x = obs.reshape(obs.shape[0], -1).float()
@@ -143,15 +174,20 @@ class GaussianMLPModel(nn.Module):
         self.obs_dim = int(np.prod(obs_shape))
         self.act_dim = int(act_dim)
         self.hidden = tuple(hidden)
-        self.trunk = _mlp((self.obs_dim, *self.hidden), gen)
+        self.trunk = mlp_init((self.obs_dim, *self.hidden), gen)
         self.mean = _linear(self.hidden[-1], self.act_dim, gen, scale=0.02)
         self.log_std = _linear(self.hidden[-1], self.act_dim, gen, scale=0.02)
-        self.vf = _mlp((self.obs_dim, *self.hidden, 1), gen)
+        self.vf = mlp_init((self.obs_dim, *self.hidden, 1), gen)
 
     def forward(self, obs: torch.Tensor):
         x = obs.reshape(obs.shape[0], -1).float()
-        h = _tanh_stack(self.trunk, x, True)
-        return (self.mean(h), self.log_std(h)), _tanh_stack(self.vf, x, False)[..., 0]
+        return self.dist_inputs(x), _tanh_stack(self.vf, x, False)[..., 0]
+
+    def dist_inputs(self, obs: torch.Tensor):
+        """(mean, log_std) alone: SAC's actor, which has no use for the value
+        tower."""
+        h = _tanh_stack(self.trunk, obs.reshape(obs.shape[0], -1).float(), True)
+        return self.mean(h), self.log_std(h)
 
 
 def get_model(

@@ -292,13 +292,11 @@ class TorchPolicy:
     def get_weights(self) -> Dict[str, np.ndarray]:
         """{parameter name: numpy copy}, in the port's layout."""
         with self._lock:
-            return {name: p.detach().to("cpu", copy=True).numpy() for name, p in self.model.named_parameters()}
+            return params_numpy(self.model)
 
-    @torch.no_grad()
     def set_weights(self, weights):
         with self._lock:
-            for name, p in self.model.named_parameters():
-                p.copy_(torch.as_tensor(np.asarray(weights[name])))
+            load_params(self.model, weights)
 
     def get_flat_weights(self) -> torch.Tensor:
         """Policy weights as ONE contiguous vector on the policy's device,
@@ -321,29 +319,53 @@ class TorchPolicy:
         Algorithm.save checkpoints."""
         with self._lock:
             named = list(self.model.named_parameters())
-            opt = [self.optimizer.state.get(p, {}) for _, p in named]
-            return {
-                "params": {name: p.detach().to("cpu", copy=True).numpy() for name, p in named},
-                "opt_state": {
-                    "count": int(opt[0]["step"]) if opt and "step" in opt[0] else 0,
-                    "exp_avg": {name: s["exp_avg"].to("cpu", copy=True).numpy() for (name, _), s in zip(named, opt) if s},
-                    "exp_avg_sq": {
-                        name: s["exp_avg_sq"].to("cpu", copy=True).numpy() for (name, _), s in zip(named, opt) if s
-                    },
-                },
-            }
+            return {"params": params_numpy(self.model), "opt_state": adam_state(self._optimizer, named)}
 
     @torch.no_grad()
     def set_state(self, state):
         self.set_weights(state["params"])
-        opt = state["opt_state"]
         with self._lock:
-            self.optimizer.state.clear()
-            if not opt["count"]:
-                return
-            for name, p in self.model.named_parameters():
-                self.optimizer.state[p] = {
-                    "step": torch.tensor(float(opt["count"]), dtype=torch.float32),
-                    "exp_avg": torch.as_tensor(opt["exp_avg"][name]).to(self.device),
-                    "exp_avg_sq": torch.as_tensor(opt["exp_avg_sq"][name]).to(self.device),
-                }
+            load_adam_state(self.optimizer, self.model.named_parameters(), state["opt_state"])
+
+
+def params_numpy(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """{parameter name: a numpy copy on the host}."""
+    return {name: p.detach().to("cpu", copy=True).numpy() for name, p in module.named_parameters()}
+
+
+@torch.no_grad()
+def load_params(module: torch.nn.Module, arrays) -> None:
+    """Copy {name: array} into `module`'s parameters, on their device."""
+    for name, p in module.named_parameters():
+        p.copy_(torch.as_tensor(np.asarray(arrays[name])))
+
+
+def adam_state(optimizer: Optional[torch.optim.Adam], named) -> Dict[str, Any]:
+    """An Adam's moments and count over the (name, parameter) pairs `named`,
+    as host numpy keyed by name: a checkpoint taken on the card loads on the
+    CPU.  A parameter that never had a gradient has no moments (the JAX
+    package's are zeros there, which move nothing), and an optimizer not
+    made yet (None) has count 0."""
+    named = list(named)
+    opt = [optimizer.state.get(p, {}) if optimizer is not None else {} for _, p in named]
+    steps = [int(s["step"]) for s in opt if "step" in s]
+    return {
+        "count": steps[0] if steps else 0,
+        "exp_avg": {name: s["exp_avg"].to("cpu", copy=True).numpy() for (name, _), s in zip(named, opt) if s},
+        "exp_avg_sq": {name: s["exp_avg_sq"].to("cpu", copy=True).numpy() for (name, _), s in zip(named, opt) if s},
+    }
+
+
+@torch.no_grad()
+def load_adam_state(optimizer: torch.optim.Adam, named, state: Dict[str, Any]) -> None:
+    """Inverse of adam_state: the moments onto the parameters' device."""
+    optimizer.state.clear()
+    if not state["count"]:
+        return
+    for name, p in named:
+        if name in state["exp_avg"]:
+            optimizer.state[p] = {
+                "step": torch.tensor(float(state["count"]), dtype=torch.float32),
+                "exp_avg": torch.as_tensor(state["exp_avg"][name]).to(p.device),
+                "exp_avg_sq": torch.as_tensor(state["exp_avg_sq"][name]).to(p.device),
+            }

@@ -208,15 +208,19 @@ class RolloutWorker:
         }
 
     def worker_info(self):
-        """What this process is: pid, the card it sees, its torch threads,
-        the policy's device and the top-level modules it has loaded."""
-        import torch
+        return worker_info(self.policy)
 
-        return {
-            "pid": os.getpid(),
-            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
-            "cuda_available": torch.cuda.is_available(),
-            "torch_threads": torch.get_num_threads(),
-            "policy_device": str(self.policy.device),
-            "modules": sorted({m.split(".")[0] for m in sys.modules}),
-        }
+
+def worker_info(policy) -> Dict[str, Any]:
+    """What a rollout worker's process is: pid, the card it sees, its torch
+    threads, its policy's device and the top-level modules it has loaded."""
+    import torch
+
+    return {
+        "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "cuda_available": torch.cuda.is_available(),
+        "torch_threads": torch.get_num_threads(),
+        "policy_device": str(policy.device),
+        "modules": sorted({m.split(".")[0] for m in sys.modules}),
+    }

@@ -239,3 +239,27 @@ def test_rllib_phase_rehearsal(monkeypatch, capsys):
     assert cs.FAILED == ["rllib (j2) profile holds device kernels"], cs.FAILED
     out = capsys.readouterr().out
     assert "rllib (j2) rollout worker pid" in out and "rllib (j3) APPO" in out
+
+
+def test_offpolicy_phase_rehearsal(monkeypatch, capsys):
+    """Phase (k) on the CPU at a tiny size (narrow MLPs, small filters, 2
+    workers x 2 envs, the learner on the CPU): (k1) each learner against
+    itself on the CPU, (k2) the SAC loop with its profile, (k3) SAC, TD3,
+    DDPG and DQN through a cluster, then the process scan after shutdown.
+    On the CPU the profile holds no device kernel, so exactly that check
+    fails."""
+    cs = _chip_smoke(monkeypatch)
+    small = {"conv_filters": ((16, 8, 4), (32, 4, 2))}
+    tiny = ((3,), 1, (16, 16), 16)
+    k1 = cs.offpolicy_learner_phase("cpu", device="cpu", sac=tiny, td3=tiny, dqn_batch=8, dqn_model=small)
+    assert all(r["metric_err"] == r["param_err"] == 0.0 for r in k1.values())
+    assert cs.FAILED == []
+    k2 = cs.sac_bench_phase("cpu", device="cpu", iters=5, profile_iters=2, alone=3, sac=tiny)
+    assert k2["env_steps_per_s"] > 0 and k2["updates_per_s"] > 0 and k2["alpha"] > 0
+    assert cs.FAILED == ["offpolicy (k2) profile holds device kernels"], cs.FAILED
+    k3 = cs.offpolicy_cluster_phase("cpu", device="cpu", envs=2, fragment=8, iters=2, updates=2, hidden=(16, 16),
+                                    dqn_model=small, worker_cpus=1, cluster_cpus=4)
+    assert {name: r["updates"] for name, r in k3.items()} == {"SAC": 4, "TD3": 4, "DDPG": 4, "DQN": 4}
+    assert cs.FAILED == ["offpolicy (k2) profile holds device kernels"], cs.FAILED
+    out = capsys.readouterr().out
+    assert "offpolicy (k3) DQN rollout worker pid" in out and "offpolicy (k1) TD3" in out

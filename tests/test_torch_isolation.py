@@ -9,7 +9,8 @@
 - A fresh interpreter that imports every ray_tpu_torch module adds no jax or
   ray_tpu module to sys.modules.
 - With no CUDA device, the default-device entry points raise instead of
-  running on the CPU.
+  running on the CPU (the models and the LM step; RLlib's off-policy
+  policies and algorithms: SAC, TD3, DDPG, DQN).
 """
 
 import ast
@@ -129,6 +130,18 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         make_train_step(GPT2Model(cfg, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         synthetic_batch(torch.Generator(), 2, 8, 16)
+    from ray_tpu_torch import rllib
+
+    for policy in (lambda: rllib.SACPolicy((3,), 1), lambda: rllib.TD3Policy((3,), 1),
+                   lambda: rllib.DQNPolicy((4,), 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            policy()
+    # each algorithm builds its learner before any worker: no cluster is touched
+    for config in (rllib.SACConfig(), rllib.TD3Config(), rllib.DDPGConfig()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            config.environment(rllib.PendulumEnv).build()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rllib.DQNConfig().environment(rllib.SyntheticPixelEnv).build()
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
